@@ -1,0 +1,652 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch/CUDA port (``strotss_torch``).
+
+Run from the repository root on a machine with one NVIDIA H100::
+
+    python3 chip_smoke.py
+
+It builds the CUDA kernels from ``strotss_torch/csrc``, holds each kernel
+against its plain PyTorch version on the card, runs a short slice of the
+64 px scale with the kernels and with the plain versions, and then drives
+the default stylization (VGG16, 9 taps, 1024 samples, 4 scales to 512 px)
+through ``strotss_torch.stylize``. Each phase prints one JSON line; any
+failure exits non-zero. The last two lines are the kernels' measurements
+and ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+# fp32 peak of the CUDA cores and memory rate, by SKU (NVIDIA data sheets)
+_PEAKS = {
+    "SXM": (67e12, 3.35e12),
+    "NVL": (60e12, 3.9e12),
+    "PCIE": (51e12, 2.0e12),
+}
+
+_REPLACES = {
+    "remd_mins": "strotss_tpu/ops/kernels/remd.py:142",
+    "selfsim_fwd": "strotss_tpu/ops/kernels/selfsim.py:162",
+    "selfsim_bwd": "strotss_tpu/ops/kernels/selfsim.py:198",
+}
+_SOURCES = {
+    "remd_mins": "strotss_torch/csrc/remd.cu",
+    "selfsim_fwd": "strotss_torch/csrc/selfsim.cu",
+    "selfsim_bwd": "strotss_torch/csrc/selfsim.cu",
+}
+
+
+class PhaseError(RuntimeError):
+    pass
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise PhaseError(what)
+
+
+def peaks(name: str):
+    up = name.upper().replace(" ", "")
+    for key, rates in _PEAKS.items():
+        if key in up:
+            return key, rates
+    return "SXM", _PEAKS["SXM"]
+
+
+def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
+    """Median of ``reps`` CUDA-event timings of ``fn()`` after warm-up."""
+    import torch
+
+    from strotss_torch.utils.timing import CudaTimer
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        timer = CudaTimer()
+        timer.start()
+        fn()
+        timer.stop()
+        times.append(timer.seconds() * 1e3)
+    return statistics.median(times)
+
+
+def device_ms(fn, names, reps: int = 20):
+    """Device time per call of ``fn`` in the kernels whose names start with
+    one of ``names``, from torch.profiler over ``reps`` calls; "not
+    measured" if the profiler sees no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for ev in prof.key_averages():
+        if (ev.device_type == torch.autograd.DeviceType.CUDA
+                and ev.key.startswith(tuple(names))):
+            dev = getattr(ev, "self_device_time_total", None)
+            us += dev if dev is not None else ev.self_cuda_time_total
+    return us / 1e3 / reps if us > 0 else "not measured"
+
+
+def bound_ms(flops: float, nbytes: float, rates) -> tuple:
+    t_ops = flops / rates[0] * 1e3
+    t_bytes = nbytes / rates[1] * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_card():
+    import torch
+
+    if not torch.cuda.is_available():
+        raise PhaseError("torch.cuda.is_available() is false: no CUDA card")
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()
+    emit({"phase": "card", "name": name, "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "count": torch.cuda.device_count()})
+    # the nvidia-smi line on its own, as the measurement record wants it
+    print(smi[0] if smi else "nvidia-smi: no output", flush=True)
+    return name
+
+
+def phase_build():
+    from strotss_torch.ops.kernels import build
+
+    t0 = time.perf_counter()
+    build.build_all()
+    for name in build._SIGNATURES:
+        build.function(name)
+    seconds = time.perf_counter() - t0
+    ptxas = {k: [ln for ln in v.splitlines() if "registers" in ln
+                 or "spill" in ln or "Compiling entry" in ln]
+             for k, v in build.build_info.items() if k.startswith("ptxas")}
+    emit({"phase": "build", "seconds": seconds, "dir": build.build_info["dir"],
+          "ptxas": ptxas})
+
+
+def _inputs(gen_seed: int, shape, positive: bool = False):
+    import torch
+
+    rng = np.random.default_rng(gen_seed)
+    a = rng.random(shape) if positive else rng.standard_normal(shape)
+    return torch.tensor(a, dtype=torch.float32, device="cuda")
+
+
+def _grad_err(g, ref) -> float:
+    """max|g - ref| / max|ref|, in float64."""
+    g, ref = g.double(), ref.double()
+    return float((g - ref).abs().max() / ref.abs().max())
+
+
+def _dist64(x, y, distance):
+    """The distances of ``strotss_torch.ops.losses`` in float64 (the port's
+    own functions compute in float32 whatever they are given)."""
+    import torch
+
+    x, y = x.double(), y.double()
+    out = 0.0
+    if distance in ("cosine", "both"):
+        xn = x * torch.rsqrt((x * x).sum(1, keepdim=True).clamp(min=1e-12))
+        yn = y * torch.rsqrt((y * y).sum(1, keepdim=True).clamp(min=1e-12))
+        out = 1.0 - xn @ yn.T
+    if distance in ("l2", "both"):
+        m = ((x * x).sum(1)[:, None] + (y * y).sum(1)[None, :]
+             - 2.0 * (x @ y.T))
+        out = out + torch.sqrt(m.clamp(min=1e-6) / x.shape[1])
+    return out
+
+
+def _rows_off(g, ref) -> int:
+    """How many rows of ``g`` stray from ``ref`` by more than 1e-4 of
+    max|ref|."""
+    row_err = (g.double() - ref.double()).abs().amax(dim=1)
+    return int((row_err > 1e-4 * ref.double().abs().max()).sum())
+
+
+def _rel(a, ref) -> float:
+    """Largest elementwise relative error of ``a`` against ``ref``."""
+    a, ref = a.double(), ref.double()
+    return float(((a - ref).abs() / ref.abs().clamp(min=1e-30)).max())
+
+
+def check_remd(n, m, c, distance, seed, rates):
+    """K1 against its plain version at one shape; returns measurements."""
+    import torch
+
+    from strotss_torch.ops.kernels import remd
+    from strotss_torch.ops.losses import dist_metrics
+
+    x = _inputs(seed, (n, c), positive=(c == 3))
+    y = _inputs(seed + 1, (m, c), positive=(c == 3))
+    rmin, cmin, rarg, carg = remd.mins(x, y, distance)
+    again = remd.mins(x, y, distance)
+    check(all(torch.equal(a, b) for a, b in
+              zip((rmin, cmin, rarg, carg), again)),
+          f"remd_mins {n}x{m}x{c} {distance}: two runs differ")
+    # Values: rtol 1e-5 against the plain version, or, where the distance
+    # itself is ill-conditioned in float32 (the L2 expansion and 1 - cos for
+    # near neighbours at C = 3), no further from the float64 minima than
+    # twice the plain float32 version's own distance from them.
+    p_rmin, p_cmin, p_rarg, p_carg = remd.mins_plain(x, y, distance)
+    full = _dist64(x, y, distance)
+    r64, c64 = full.min(dim=1).values, full.min(dim=0).values
+    plain_err = max(_rel(p_rmin, r64), _rel(p_cmin, c64))
+    err = max(_rel(rmin, p_rmin), _rel(cmin, p_cmin))
+    err64 = max(_rel(rmin, r64), _rel(cmin, c64))
+    tol = max(1e-5, 2.0 * plain_err)
+    check(err <= 1e-5 or err64 <= tol,
+          f"remd_mins {distance} C={c}: minima rel err {err} (vs float64 "
+          f"{err64}, plain float32 vs float64 {plain_err})")
+    rows = torch.arange(n, device="cuda")
+    cols = torch.arange(m, device="cuda")
+    arg_err = max(_rel(full[rows, rarg.long()], r64),
+                  _rel(full[carg.long(), cols], c64))
+    n_flip = int((rarg != p_rarg).sum() + (carg != p_carg).sum())
+    check(arg_err <= tol,
+          f"remd_mins {distance} C={c}: distance at the kernel's argmin is "
+          f"{arg_err} (rel) off the float64 minimum")
+
+    # gradients: the kernel's VJP against plain autograd through the
+    # materialized matrix at the same (kernel) argmins, so that a near-tie
+    # resolved differently by rounding cannot masquerade as a VJP error;
+    # 1e-4 of max|g|, or no further from float64 than twice plain float32
+    xk = x.clone().requires_grad_(True)
+    yk = y.clone().requires_grad_(True)
+    r1, c1 = remd.remd_mins(xk, yk, distance, "kernel")
+    gk = torch.autograd.grad(torch.maximum(r1.mean(), c1.mean()), [xk, yk])
+
+    def plain_grads(dtype):
+        xp = x.to(dtype).requires_grad_(True)
+        yp = y.to(dtype).requires_grad_(True)
+        dist = dist_metrics[distance] if dtype == torch.float32 else (
+            lambda a, b: _dist64(a, b, distance))
+        fp = dist(xp, yp)
+        lp = torch.maximum(fp[rows, rarg.long()].mean(),
+                           fp[carg.long(), cols].mean())
+        return torch.autograd.grad(lp, [xp, yp])
+
+    gp = plain_grads(torch.float32)
+    g64 = plain_grads(torch.float64)
+    gerr = max(_grad_err(a, b) for a, b in zip(gk, gp))
+    gerr64 = max(_grad_err(a, b) for a, b in zip(gk, g64))
+    gplain64 = max(_grad_err(a, b) for a, b in zip(gp, g64))
+    check(gerr <= 1e-4 or gerr64 <= max(1e-4, 2.0 * gplain64),
+          f"remd_mins {distance} C={c}: grad err {gerr} (vs float64 "
+          f"{gerr64}, plain float32 vs float64 {gplain64})")
+
+    ms = time_ms(lambda: remd.mins(x, y, distance))
+    dev_ms = device_ms(lambda: remd.mins(x, y, distance),
+                       ("remd_tile_kernel", "remd_reduce_kernel"))
+    plain_ms = time_ms(lambda: remd.mins_plain(x, y, distance))
+    library_ms = None
+    if distance == "cosine":
+        # yardstick: cdist of the normalized rows is monotone in the cosine
+        # distance, so its minima pick the same pairs
+        xn = torch.nn.functional.normalize(x, dim=1)
+        yn = torch.nn.functional.normalize(y, dim=1)
+
+        def lib():
+            d = torch.cdist(xn, yn)
+            return d.min(dim=1), d.min(dim=0)
+
+        library_ms = time_ms(lib)
+    epi = {"cosine": 5, "l2": 7, "both": 11}[distance]
+    flops = 2.0 * n * m * c + epi * n * m
+    nbytes = 4.0 * (n + m) * c + 8.0 * (n + m)
+    b_ms, b_by = bound_ms(flops, nbytes, rates)
+    out = {"shape": [n, m, c], "distance": distance, "max_abs_err":
+           float(max((rmin - p_rmin).abs().max(), (cmin - p_cmin).abs().max())),
+           "max_rel_err": err, "rel_err_vs_f64": err64,
+           "plain_rel_err_vs_f64": plain_err, "argmin_flips": n_flip,
+           "grad_err": gerr, "grad_err_vs_f64": gerr64,
+           "plain_grad_err_vs_f64": gplain64,
+           "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
+    emit({"phase": "kernel", "name": "remd_mins", **out})
+    return out
+
+
+def check_selfsim(n, c, seed, rates):
+    """K2a and K2b against their plain versions at one shape."""
+    import torch
+
+    from strotss_torch.ops.kernels import selfsim
+
+    x = _inputs(seed, (n, c))
+    y = _inputs(seed + 1, (n, c))
+    xh, yh, _, _, cx, cy = selfsim._prep(x, y)
+    loss, tx, ty = selfsim.selfsim_fwd(xh, yh, cx, cy)
+    again = selfsim.selfsim_fwd(xh, yh, cx, cy)
+    check(all(torch.equal(a, b) for a, b in zip((loss, tx, ty), again)),
+          f"selfsim_fwd N={n}: two runs differ")
+    ux, uy = selfsim.selfsim_bwd(xh, yh, cx, cy, tx, ty)
+    again = selfsim.selfsim_bwd(xh, yh, cx, cy, tx, ty)
+    check(torch.equal(ux, again[0]) and torch.equal(uy, again[1]),
+          f"selfsim_bwd N={n}: two runs differ")
+
+    p_loss = selfsim.self_similarity_plain(x, y)
+    lerr = abs(float(loss) - float(p_loss)) / abs(float(p_loss))
+    check(lerr <= 1e-5, f"selfsim N={n}: loss rel err {lerr}")
+
+    # Gradients, row by row: 1e-4 of max|g| in all but 1% of the rows.
+    # Where A - B lies within rounding of 0, kernel and plain version may
+    # take opposite signs; one such flip at (i, j) moves rows i and j by
+    # ~2/(c_j N) |x^_j|, about 1% of max|g| at N ~ 1000, and no other row.
+    # K2b itself is compared on the same (t_x, t_y) after the pull-back's
+    # projection (which removes the diagonal's rounding-noise sign exactly).
+    def project(u, h):
+        return u - torch.sum(u * h, dim=1, keepdim=True) * h
+
+    pux, puy = selfsim.selfsim_bwd_plain(xh, yh, cx, cy, tx, ty)
+    rows_off_u = max(_rows_off(project(u, h), project(pu, h))
+                     for u, pu, h in ((ux, pux, xh), (uy, puy, yh)))
+
+    def grads(fn):
+        xx = x.clone().requires_grad_(True)
+        yy = y.clone().requires_grad_(True)
+        return torch.autograd.grad(fn(xx, yy), [xx, yy])
+
+    gk = grads(lambda a, b: selfsim.self_similarity(a, b, "kernel"))
+    gp = grads(lambda a, b: selfsim.self_similarity(a, b, "plain"))
+    rows_off_g = max(_rows_off(a, b) for a, b in zip(gk, gp))
+    gerr_plain = max(_grad_err(a, b) for a, b in zip(gk, gp))
+    check(max(rows_off_u, rows_off_g) <= n // 100,
+          f"selfsim N={n}: rows off by more than 1e-4 of max|g|: "
+          f"{rows_off_u} of (G + G^T) x^, {rows_off_g} of the gradient")
+
+    fwd_ms = time_ms(lambda: selfsim.selfsim_fwd(xh, yh, cx, cy))
+    bwd_ms = time_ms(lambda: selfsim.selfsim_bwd(xh, yh, cx, cy, tx, ty))
+    fwd_dev = device_ms(lambda: selfsim.selfsim_fwd(xh, yh, cx, cy),
+                        ("selfsim_fwd_kernel", "selfsim_fwd_reduce_kernel"))
+    bwd_dev = device_ms(lambda: selfsim.selfsim_bwd(xh, yh, cx, cy, tx, ty),
+                        ("selfsim_gmat_kernel", "selfsim_apply_kernel"))
+    xr = x.clone().requires_grad_(True)
+    yr = y.clone().requires_grad_(True)
+    p_val = selfsim.self_similarity_plain(xr, yr)
+    plain_fwd_ms = time_ms(lambda: selfsim.self_similarity_plain(x, y))
+    plain_bwd_ms = time_ms(lambda: torch.autograd.grad(
+        p_val, [xr, yr], retain_graph=True))
+    # x^ x^T and y^ y^T are symmetric: N(N+1)/2 dot products of length C
+    # each, so N(N+1)C operations per Gram matrix
+    gram_flops = 2 * float(n) * (n + 1) * c
+    fwd_flops = gram_flops + 8.0 * n * n
+    fwd_bytes = 4.0 * (2 * n * c + 2 * n) + 4.0 * (1 + 2 * n)
+    bwd_flops = gram_flops + 2 * 2.0 * n * n * c + 12.0 * n * n
+    bwd_bytes = 4.0 * (2 * n * c + 4 * n) + 4.0 * 2 * n * c
+    out = {
+        "fwd": {"shape": [n, c], "max_abs_err": abs(float(loss - p_loss)),
+                "max_rel_err": lerr, "ms": fwd_ms, "device_ms": fwd_dev,
+                "plain_ms": plain_fwd_ms, "library_ms": None,
+                **dict(zip(("bound_ms", "bound_by"),
+                           bound_ms(fwd_flops, fwd_bytes, rates)))},
+        "bwd": {"shape": [n, c], "max_abs_err": float(max(
+                    (a - b).abs().max() for a, b in zip(gk, gp))),
+                "grad_err_vs_plain": gerr_plain,
+                "rows_off_projected": rows_off_u,
+                "rows_off_grad": rows_off_g, "ms": bwd_ms,
+                "device_ms": bwd_dev,
+                "plain_ms": plain_bwd_ms, "library_ms": None,
+                **dict(zip(("bound_ms", "bound_by"),
+                           bound_ms(bwd_flops, bwd_bytes, rates)))},
+    }
+    emit({"phase": "kernel", "name": "selfsim", **out})
+    return out
+
+
+def phase_kernels(rates):
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    remd_main = check_remd(1024, 1024, 2179, "cosine", 1, rates)
+    remd_yuv = check_remd(1024, 1024, 3, "both", 3, rates)
+    check_remd(1000, 777, 2179, "both", 5, rates)
+    ss_main = check_selfsim(1024, 2179, 7, rates)
+    check_selfsim(1000, 2179, 9, rates)
+    return {"remd_mins": (remd_main, remd_yuv), "selfsim": ss_main}
+
+
+def _smooth_image(h: int, w: int, seed: int) -> np.ndarray:
+    """(1, h, w, 3) float32 in [0, 1]: random 16-px blocks smoothed by an
+    18-px box blur, so the VGG features are not white noise."""
+    rng = np.random.default_rng(seed)
+    blocks = rng.random((h // 16 + 2, w // 16 + 2, 3))
+    img = np.kron(blocks, np.ones((16, 16, 1)))[:h, :w]
+    k = 9
+    pad = np.pad(img, ((k, k), (k, k), (0, 0)), mode="edge")
+    cs = pad.cumsum(0).cumsum(1)
+    box = (cs[2 * k:, 2 * k:] - cs[:-2 * k, 2 * k:] - cs[2 * k:, :-2 * k]
+           + cs[:-2 * k, :-2 * k]) / (2 * k) ** 2
+    return box[None, :h, :w].astype(np.float32)
+
+
+def phase_slice(vgg_params):
+    """The 64 px scale for 10 steps, kernels against plain versions, from
+    the same state and the same sample coordinates.
+
+    Free-running trajectories cannot be held close: RMSprop's first
+    updates are nearly sign(g) * 10 lr, so any rounding difference grows,
+    and cuDNN's and the gathers' backward passes are not bitwise
+    reproducible (the plain path run twice differs by ~2% in loss after
+    10 bf16 steps). So each step is evaluated with the kernels and with
+    the plain versions from the same pyramid and coordinates, the losses
+    are held to rtol 1e-3, and the run goes on with the kernels'
+    gradient. The kernels' gradients are held to their plain versions in
+    the kernel phase.
+    """
+    import torch
+
+    import strotss_torch
+    from strotss_torch import programs, solve
+    from strotss_torch.models.vgg import VGG
+    from strotss_torch.ops import sampling
+    from strotss_torch.ops.image import fold_laplacian_pyramid
+    from strotss_torch.ops.losses import moment_stats
+
+    content = _smooth_image(480, 640, 11)
+    style = _smooth_image(720, 560, 12)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    cfg = strotss_torch.StrotssConfig(levels=1, max_iter=10)
+    spec_k = programs.spec_from_config(cfg)
+    spec_p = spec_k._replace(remd_impl="plain", selfsim_impl="plain")
+    programs.set_precision(spec_k)
+    c = torch.tensor(content, device="cuda")
+    s = torch.tensor(style, device="cuda")
+    mode, chw, shw = solve.scale_mode_shapes(cfg, c.shape, s.shape, 0, 64)
+    vgg = VGG({k: {n: t.cuda() for n, t in p.items()}
+               for k, p in vgg_params.items()}, taps=spec_k.taps,
+              compute_dtype=spec_k.compute_dtype)
+    n = cfg.sample_size
+    with torch.no_grad():
+        scl_c, scl_s, pyramid = programs.scale_seed(
+            mode, chw, shw, cfg.pyramid_levels, c, s, None)
+        content_feats = programs.extract_hypercolumn(vgg, scl_c)
+        targets = sampling.sample_style(
+            sampling.full_grid_coords(gen, shw, n, "cuda"),
+            programs.extract_hypercolumn(vgg, scl_s))
+        moments = moment_stats(targets)
+    pyramid = [p.contiguous() for p in pyramid]
+    opt = programs.RMSprop(pyramid, cfg.lr)
+    alpha = cfg.initial_alpha()
+    loss_err, forced = [], []
+    for t in range(cfg.max_iter):
+        step_coords = sampling.strided_grid_coords(gen, chw, n, "cuda")
+        leaves = [p.requires_grad_(True) for p in pyramid]
+        pred = programs.extract_hypercolumn(vgg,
+                                            fold_laplacian_pyramid(leaves))
+        loss, _, _ = programs.step_losses(spec_k, content_feats, pred,
+                                          targets, moments, alpha,
+                                          step_coords)
+        grads = torch.autograd.grad(loss, leaves)
+        with torch.no_grad():
+            pred = programs.extract_hypercolumn(
+                vgg, fold_laplacian_pyramid(pyramid))
+            plain, _, _ = programs.step_losses(spec_p, content_feats, pred,
+                                               targets, moments, alpha,
+                                               step_coords)
+        lk, lp = float(loss.detach()), float(plain)
+        forced.append(lk)
+        loss_err.append(abs(lk - lp) / abs(lp))
+        opt.step(grads)
+
+    emit({"phase": "slice", "scale": 64, "steps": cfg.max_iter,
+          "loss": forced, "loss_rel_err": loss_err})
+    check(bool(np.all(np.isfinite(forced))), "slice: non-finite loss")
+    check(max(loss_err) <= 1e-3,
+          f"slice: kernel and plain losses differ by {max(loss_err)} at "
+          "the same state")
+
+
+def phase_main():
+    """The default stylization through strotss_torch.stylize, weights
+    resolved as a user's run resolves them (on a machine without
+    pretrained weights: the seeded random init, with a warning)."""
+    import torch
+
+    import strotss_torch
+    from strotss_torch.ops.kernels import remd, selfsim
+
+    cfg = strotss_torch.StrotssConfig()
+    content = _smooth_image(480, 640, 21)
+    style = _smooth_image(720, 560, 22)
+    for fn in (remd.mins, selfsim.selfsim_fwd, selfsim.selfsim_bwd):
+        fn.launches = 0
+    t0 = time.perf_counter()
+    img, info = strotss_torch.stylize(content, style, cfg)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"remd_mins": remd.mins.launches,
+                "selfsim_fwd": selfsim.selfsim_fwd.launches,
+                "selfsim_bwd": selfsim.selfsim_bwd.launches}
+    steps = cfg.levels * cfg.max_iter
+    scales = [{"scale": s["scale"], "seconds": s["seconds"],
+               "first_loss": float(s["curve"][0, 0]),
+               "last_loss": float(s["curve"][-1, 0])}
+              for s in info["scales"]]
+    emit({"phase": "main", "config": "StrotssConfig() defaults: VGG16, 9 "
+          "taps (2179 channels), 1024 samples, 4 scales to 512 px, "
+          "bfloat16 policy", "max_iter": cfg.max_iter, "steps": steps,
+          "content": list(content.shape), "style": list(style.shape),
+          "output": list(img.shape), "seconds": seconds,
+          "stylize_seconds": info["seconds"], "scales": scales,
+          "launches": launches,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+    for s in info["scales"]:
+        check(bool(np.all(np.isfinite(s["curve"]))),
+              f"main: non-finite loss at scale {s['scale']}")
+        check(s["curve"][-1, 0] < s["curve"][0, 0],
+              f"main: scale {s['scale']} loss did not fall")
+    check(img.dtype == torch.uint8 and tuple(img.shape) == (384, 512, 3),
+          f"main: output {img.dtype} {tuple(img.shape)}, want uint8 "
+          "(384, 512, 3)")
+    want = {"remd_mins": 2 * steps, "selfsim_fwd": steps,
+            "selfsim_bwd": steps}
+    check(launches == want, f"main: launches {launches}, want {want}")
+    return launches
+
+
+def phase_profile(vgg_params):
+    """Where a step's time goes: torch.profiler over 10 steps at each of
+    the 4 scales. Device kernel time by name, and its share of the wall
+    clock of the same run made without the profiler. Reports "not
+    measured" if the profiler sees no device time. Scale set-up (two VGG
+    forwards, target sampling) is inside the 40 steps' wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import strotss_torch
+
+    cfg = strotss_torch.StrotssConfig(max_iter=10)
+    content = _smooth_image(480, 640, 31)
+    style = _smooth_image(720, 560, 32)
+    t0 = time.perf_counter()
+    strotss_torch.stylize(content, style, cfg, vgg_params=vgg_params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0  # unprofiled, after the build warm-up
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, info = strotss_torch.stylize(content, style, cfg,
+                                        vgg_params=vgg_params)
+        torch.cuda.synchronize()
+        wall_profiled = time.perf_counter() - t0
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue  # host-side ops; their kernels are rows of their own
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0)
+        if dev_us > 0:
+            rows.append((ev.key, dev_us / 1e3, ev.count))
+    rows.sort(key=lambda r: -r[1])
+    device_ms = sum(r[1] for r in rows)
+    steps = cfg.levels * cfg.max_iter
+    ours = {"remd_tile_kernel", "remd_reduce_kernel", "selfsim_fwd_kernel",
+            "selfsim_fwd_reduce_kernel", "selfsim_gmat_kernel",
+            "selfsim_apply_kernel"}
+    ours_ms = sum(r[1] for r in rows if any(o in r[0] for o in ours))
+    emit({"phase": "profile", "steps": steps, "wall_s": wall,
+          "wall_ms_per_step": wall * 1e3 / steps,
+          "wall_ms_per_step_profiled": wall_profiled * 1e3 / steps,
+          "device_ms_per_step": (device_ms / steps) if rows
+          else "not measured",
+          "device_busy_share": (device_ms / 1e3 / wall) if rows
+          else "not measured",
+          "port_kernels_ms_per_step": ours_ms / steps,
+          "scale_seconds": [s["seconds"] for s in info["scales"]],
+          "top_device": [{"name": k[:80], "ms": ms, "count": n}
+                         for k, ms, n in rows[:15]]})
+
+
+def kernels_line(meas, launches):
+    remd_main, remd_yuv = meas["remd_mins"]
+    rows = []
+    entry = {k: remd_main[k] for k in ("max_abs_err", "ms", "device_ms",
+                                       "plain_ms", "bound_ms", "bound_by",
+                                       "library_ms")}
+    entry["max_abs_err"] = max(remd_main["max_abs_err"],
+                               remd_yuv["max_abs_err"])
+    entry["yuv_both_c3"] = {k: remd_yuv[k] for k in
+                            ("ms", "device_ms", "plain_ms", "bound_ms",
+                             "bound_by")}
+    rows.append(("remd_mins", entry))
+    rows.append(("selfsim_fwd", meas["selfsim"]["fwd"]))
+    rows.append(("selfsim_bwd", meas["selfsim"]["bwd"]))
+    out = []
+    for name, m in rows:
+        out.append({
+            "name": name, "route": "cuda", "source": _SOURCES[name],
+            "replaces": _REPLACES[name], "launches": launches[name],
+            "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+            "device_ms": m["device_ms"],
+            **{k: v for k, v in m.items() if k == "yuv_both_c3"},
+        })
+    return {"kernels": out}
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError as e:
+        print(f"chip_smoke: torch is not importable ({e})", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this smoke "
+              "test runs only on a CUDA card", file=sys.stderr)
+        return 2
+    try:
+        import strotss_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the strotss_torch package is missing ({e}); run "
+              "this script from the root of the repository", file=sys.stderr)
+        return 2
+    try:
+        name = phase_card()
+        _, rates = peaks(name)
+        phase_build()
+        meas = phase_kernels(rates)
+        from strotss_torch.models.weights import random_params
+
+        # seeded random weights: the card's machine has no pretrained VGG
+        vgg_params = random_params("16", seed=0)
+        phase_slice(vgg_params)
+        launches = phase_main()
+        phase_profile(vgg_params)
+    except PhaseError as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    print(json.dumps(kernels_line(meas, launches)), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

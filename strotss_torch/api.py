@@ -1,0 +1,78 @@
+"""High-level library API: one call = one stylization (the counterpart of
+``strotss_tpu/api.py``). Runs on the CUDA card unless the caller passes
+``device='cpu'``; without a card it raises instead of falling back."""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from strotss_torch.config import StrotssConfig
+from strotss_torch.models.weights import load_vgg_params
+from strotss_torch.solve import stylize_single
+from strotss_torch.validation import check_image
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` -> ``cuda``; a CUDA device must exist (no CPU fallback)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "strotss_torch runs on a CUDA card and none is available; "
+                "pass device='cpu' to run on the CPU")
+        if (dev.index or 0) >= torch.cuda.device_count():
+            raise ValueError(f"Invalid device ID: {dev.index}")
+    return dev
+
+
+def _to_device(x, device: torch.device) -> torch.Tensor:
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.asarray(x))
+    return x.to(device=device, dtype=torch.float32)
+
+
+def stylize(
+    content,
+    style,
+    cfg: Optional[StrotssConfig] = None,
+    content_masks=None,
+    style_masks=None,
+    vgg_params=None,
+    progress_cb=None,
+    snapshot_cb=None,
+    init_image=None,
+    style_weights=None,
+    device=None,
+) -> Tuple[torch.Tensor, Dict]:
+    """Stylize ``content`` with ``style`` (both (1,H,W,3) float in [0,1],
+    numpy arrays or tensors).
+
+    Returns the uint8 HWC stylized image (on the run's device) and an info
+    dict with per-scale losses and timings. ``device``: ``None`` (the
+    first CUDA card), ``'cuda:<id>'`` or ``'cpu'``.
+    """
+    if content_masks is not None or style_masks is not None:
+        raise NotImplementedError("region masks are not ported to "
+                                  "strotss_torch yet (ROADMAP.md Queue 1 "
+                                  "item 7)")
+    if isinstance(style, (list, tuple)) or style_weights is not None:
+        raise NotImplementedError("multi-style blending is not ported to "
+                                  "strotss_torch yet (ROADMAP.md Queue 1 "
+                                  "item 8)")
+    if init_image is not None:
+        raise NotImplementedError("warm start (init_image) is not ported to "
+                                  "strotss_torch yet (ROADMAP.md Queue 1 "
+                                  "item 9)")
+    check_image("content", content)
+    check_image("style", style)
+    dev = resolve_device(device)
+    cfg = cfg or StrotssConfig()
+    if vgg_params is None:
+        vgg_params = load_vgg_params(cfg.vgg_type, cfg.use_keras_weight)
+    return stylize_single(
+        _to_device(content, dev), _to_device(style, dev), cfg, vgg_params,
+        progress_cb=progress_cb, snapshot_cb=snapshot_cb,
+    )

@@ -1,0 +1,174 @@
+"""CLI of the port: ``python -m strotss_torch.cli content style -o out``.
+
+Same flags, defaults and log messages as ``strotss_tpu/cli.py``. The run
+goes to ``cuda:<--gpu_id>`` (alias ``--device_id``); ``--cpu`` asks for the
+CPU instead, and without a card and without ``--cpu`` the run stops with
+an error rather than falling back. Flags of paths not ported yet (masks,
+``--init``, blended styles, ``--sinkhorn``, ``--checkpoint_dir``,
+``--start_level``, ``--remat``, ``--profile_dir``) raise a clear error.
+``--no_pallas`` takes the plain PyTorch versions of the kernels;
+``--no_precompile`` is accepted and changes nothing (nothing is compiled
+ahead of the run).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+from strotss_torch.config import StrotssConfig
+from strotss_torch.utils.logging import make_logger
+from strotss_torch.utils.timing import Timer
+
+logger = make_logger("STROTSS")
+
+#: flag -> ROADMAP.md Queue 1 item that ports it
+_UNPORTED = {
+    "content_mask": 7, "style_mask": 7, "style2": 8, "style_blend": 8,
+    "styles": 8, "style_weights": 8, "init": 9, "checkpoint_dir": 9,
+    "start_level": 9, "sinkhorn": 12, "remat": 14, "profile_dir": 14,
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="strotss_torch",
+        description="STROTSS style transfer on a CUDA card (PyTorch port)",
+    )
+    parser.add_argument("content_path", type=str)
+    parser.add_argument("style_path", type=str)
+    parser.add_argument("--content_mask", type=str, default=None)
+    parser.add_argument("--style_mask", type=str, default=None)
+    parser.add_argument("--max_size", type=int, default=None)
+    parser.add_argument("--lr", type=float, default=2e-3)
+    parser.add_argument("--level", type=int, default=4)
+    parser.add_argument("--max_iter", type=int, default=200)
+    parser.add_argument("--alpha", type=float, default=1.0)
+    parser.add_argument("--use_keras_weight", action="store_true")
+    parser.add_argument("--gpu_id", "--device_id", type=int, default=0,
+                        dest="device_id")
+    parser.add_argument("--cpu", action="store_true",
+                        help="run on the CPU instead of the CUDA card")
+    parser.add_argument("--output_path", "-o", type=str, default="output.jpg")
+    parser.add_argument("--compute_dtype", type=str, default="bfloat16",
+                        choices=["bfloat16", "float32"])
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--log_every", type=int, default=None,
+                        help="steps between progress updates (default: 25 "
+                             "when stderr is a TTY, else max_iter)")
+    parser.add_argument("--no_pallas", action="store_true",
+                        help="plain PyTorch versions instead of the CUDA "
+                             "kernels")
+    parser.add_argument("--no_precompile", action="store_true",
+                        help="accepted for the JAX CLI's sake; no effect")
+    parser.add_argument("--sinkhorn", action="store_true")
+    parser.add_argument("--profile_dir", type=str, default=None)
+    parser.add_argument("--save_every", type=int, default=0)
+    parser.add_argument("--checkpoint_dir", type=str, default=None)
+    parser.add_argument("--sample_size", type=int, default=1024,
+                        help="feature samples per step (reference pins 1024)")
+    parser.add_argument("--debug_nans", action="store_true",
+                        help="autograd anomaly detection (NaN/inf checks)")
+    parser.add_argument("--taps", type=str, default=None,
+                        help="comma-separated VGG tap layers "
+                             "(default: the 9 STROTSS taps)")
+    parser.add_argument("--init", type=str, default=None)
+    parser.add_argument("--remat", action="store_true")
+    parser.add_argument("--style2", type=str, default=None)
+    parser.add_argument("--style_blend", type=float, default=None)
+    parser.add_argument("--styles", type=str, nargs="+", default=None)
+    parser.add_argument("--style_weights", type=float, nargs="+",
+                        default=None)
+    parser.add_argument("--start_level", type=int, default=0)
+    return parser
+
+
+def check_unported(args: argparse.Namespace) -> None:
+    for flag, item in _UNPORTED.items():
+        if getattr(args, flag):
+            raise NotImplementedError(
+                f"--{flag} is not ported to strotss_torch yet (ROADMAP.md "
+                f"Queue 1 item {item}); use python -m strotss_tpu.cli")
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    check_unported(args)
+
+    timer = Timer()
+    timer.start()
+
+    import torch
+
+    from strotss_torch.api import resolve_device, stylize
+    from strotss_torch.utils.io import load_image, write_image
+
+    device = resolve_device("cpu" if args.cpu else f"cuda:{args.device_id}")
+    if args.debug_nans:
+        torch.autograd.set_detect_anomaly(True)
+    if args.log_every is None:
+        args.log_every = 25 if sys.stderr.isatty() else args.max_iter
+
+    cfg = StrotssConfig(
+        lr=args.lr,
+        levels=args.level,
+        max_iter=args.max_iter,
+        alpha=args.alpha,
+        max_size=args.max_size,
+        sample_size=args.sample_size,
+        use_keras_weight=args.use_keras_weight,
+        compute_dtype=args.compute_dtype,
+        seed=args.seed,
+        log_every=args.log_every,
+        use_pallas=not args.no_pallas,
+        precompile=not args.no_precompile,
+        save_every=args.save_every,
+        taps=tuple(args.taps.split(",")) if args.taps else None,
+    )
+    content = load_image(args.content_path, max_size=args.max_size)
+    style = load_image(args.style_path, max_size=args.max_size)
+
+    try:
+        from tqdm import tqdm
+
+        bar = tqdm(total=cfg.levels * cfg.max_iter)
+        prog = {"base": 0, "scl": None}
+
+        def progress(scl, done, total, metrics):
+            if prog["scl"] != scl:
+                if prog["scl"] is not None:
+                    prog["base"] += total
+                prog["scl"] = scl
+            bar.set_description(f"Scale: {scl:4d} - It: {done:4d}")
+            bar.set_postfix({k: f"{v:.3f}" for k, v in metrics.items()})
+            bar.n = prog["base"] + done
+            bar.refresh()
+    except ImportError:  # tqdm optional
+        bar = None
+
+        def progress(scl, done, total, metrics):
+            logger.info(
+                f"Scale: {scl:4d} - It: {done:4d}/{total} "
+                + " ".join(f"{k}={v:.3f}" for k, v in metrics.items()))
+
+    snapshot = None
+    if cfg.save_every > 0:
+        stem, ext = os.path.splitext(args.output_path)
+
+        def snapshot(scl, it, img):
+            write_image(img, f"{stem}_scale{scl}_it{it:04d}{ext or '.jpg'}")
+
+    final, _ = stylize(content, style, cfg, progress_cb=progress,
+                       snapshot_cb=snapshot, device=device)
+    if bar is not None:
+        bar.close()
+
+    timer.stop()
+    logger.info(f"Done in {timer.elapsed_time:.2f}s.")
+    write_image(final, args.output_path)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

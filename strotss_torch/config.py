@@ -1,0 +1,82 @@
+"""Configuration of one stylization run.
+
+The port's own copy of ``strotss_tpu/config.py``'s ``StrotssConfig``, with
+the same fields and defaults (a test holds them equal). Importing the JAX
+package's module would import JAX, so the port keeps this copy. Fields of
+paths not ported yet (masks, warm start, checkpoints, Sinkhorn, sharding,
+the block1 kernel) exist so that configurations carry over; the port
+raises where one of them asks for such a path.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class StrotssConfig:
+    """All knobs for one stylization run (see ``strotss_tpu.StrotssConfig``).
+
+    Reference-parity fields: ``lr`` (RMSprop learning rate), ``levels``
+    (coarse-to-fine scales), ``max_iter`` (steps per scale), ``alpha``
+    (content weight, scaled x16 internally), ``max_size`` (cap on the long
+    edge), ``use_keras_weight`` (Keras ImageNet weights and caffe
+    preprocessing).
+    """
+
+    # --- reference CLI surface -------------------------------------------
+    lr: float = 2e-3
+    levels: int = 4
+    max_iter: int = 200
+    alpha: float = 1.0
+    max_size: Optional[int] = None
+    use_keras_weight: bool = False
+
+    # --- model -----------------------------------------------------------
+    vgg_type: str = "16"
+    #: VGG tap layers; None = the 9 STROTSS defaults.
+    taps: Optional[tuple] = None
+    sample_size: int = 1024
+    pyramid_levels: int = 5
+
+    # --- knobs beyond the reference ----------------------------------------
+    #: skip the coarsest ``start_level`` scales (not ported yet: must be 0)
+    start_level: int = 0
+    #: recompute VGG activations in the backward pass (not ported yet)
+    remat: bool = False
+    #: dtype for the VGG conv path; losses always run in float32.
+    compute_dtype: str = "bfloat16"
+    #: steps between progress reports (the JAX package's scan chunk size)
+    log_every: int = 200
+    #: base seed of the sampling generators
+    seed: int = 0
+    #: the JAX package's AOT precompile switch; nothing to compile ahead
+    #: here, so the port ignores it
+    precompile: bool = True
+    #: run the hand-written kernels ('auto' on CUDA tensors); False takes
+    #: the plain PyTorch versions
+    use_pallas: bool = True
+    #: VGG block1 implementation: only 'auto'/'xla' (F.conv2d) are ported
+    block1_impl: str = "auto"
+    #: optional torch.profiler trace directory (not ported yet)
+    profile_dir: Optional[str] = None
+    #: dump intermediate stylized images every N steps (0 = off)
+    save_every: int = 0
+    #: checkpoint directory (not ported yet)
+    checkpoint_dir: Optional[str] = None
+    #: Sinkhorn transport instead of REMD (not ported yet)
+    use_sinkhorn: bool = False
+    sinkhorn_lambda: float = 10.0
+    sinkhorn_iters: int = 30
+    #: multi-device sharding (not ported yet)
+    shard_samples: bool = False
+    shard_spatial: bool = False
+
+    def scale_sizes(self) -> list:
+        """The coarse-to-fine long-edge schedule: 64, 128, 256, 512, ..."""
+        return [2 << (5 + i) for i in range(self.levels)]
+
+    def initial_alpha(self) -> float:
+        """alpha * 16, x3500 in keras-weight mode."""
+        return self.alpha * 16.0 * (3500.0 if self.use_keras_weight else 1.0)

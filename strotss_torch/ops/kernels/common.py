@@ -1,0 +1,64 @@
+"""Numerics shared by the hand-written kernels and their plain versions.
+
+Counterpart of ``strotss_tpu/ops/kernels/common.py``. The eps floors live
+here, once, and :mod:`strotss_torch.ops.losses` imports them, so a kernel
+and its plain version cannot drift apart. The same floors are written into
+``csrc/*.cu``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_L2NORM_EPS = 1e-12  # floor on squared row norms before the rsqrt
+_L2DIST_EPS = 1e-6  # floor on squared L2 distances
+_COLSUM_EPS = 1e-12  # floor on self-similarity column sums
+
+
+def round_up(v: int, m: int) -> int:
+    """Smallest multiple of ``m`` that is >= ``v``."""
+    return -(-v // m) * m
+
+
+def normalize_rows(x: torch.Tensor):
+    """Row-L2-normalize with the shared eps floor.
+
+    Returns ``(normalized, inverse_norms)``; the inverse norms are reused
+    by the kernels' backward passes.
+    """
+    sq = torch.sum(x * x, dim=1, keepdim=True)
+    inv = torch.rsqrt(torch.clamp(sq, min=_L2NORM_EPS))
+    return x * inv, inv
+
+
+def resolve_impl(impl: str, t: torch.Tensor) -> str:
+    """``'auto'`` -> ``'kernel'`` on a CUDA tensor, ``'plain'`` on the CPU.
+
+    ``'kernel'`` on a CPU tensor raises: a kernel runs only on the card,
+    and nothing falls back quietly.
+    """
+    if impl == "auto":
+        return "kernel" if t.is_cuda else "plain"
+    if impl == "plain":
+        return impl
+    if impl == "kernel":
+        if not t.is_cuda:
+            raise RuntimeError(
+                "impl='kernel' needs CUDA tensors; this one lies on "
+                f"{t.device}. Use impl='plain' or 'auto' on the CPU."
+            )
+        return impl
+    raise ValueError(f"impl must be 'auto', 'plain' or 'kernel', got {impl!r}")
+
+
+def check_cuda_f32(name: str, t: torch.Tensor, shape) -> None:
+    """Raise unless ``t`` is a contiguous float32 CUDA tensor of ``shape``."""
+    if not t.is_cuda:
+        raise RuntimeError(f"{name} must lie on a CUDA device, got {t.device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

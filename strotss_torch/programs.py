@@ -1,0 +1,149 @@
+"""One optimization step and its pieces, the counterpart of
+``strotss_tpu/programs.py`` (lines 48-136, 200-235, 505-539, 605-663).
+
+A step folds the Laplacian pyramid into the image, runs VGG with the
+STROTSS taps, samples content and prediction rows of the hypercolumn at
+shared strided-grid coordinates, computes the content loss
+(self-similarity) and the style loss (moments against the hoisted target
+statistics, REMD on cosine distance, REMD with the 'both' distance on
+YUV), takes the gradient back to the pyramid and applies RMSprop. PyTorch
+runs eagerly, so the JAX package's per-scale compiled programs become a
+Python loop over steps.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, List, NamedTuple, Sequence
+
+import torch
+
+from strotss_torch.config import StrotssConfig
+from strotss_torch.models.vgg import STROTSS_DEFAULT_TAPS, VGG
+from strotss_torch.ops.image import (
+    fold_laplacian_pyramid,
+    make_laplacian,
+    make_laplacian_pyramid,
+    resize_bilinear,
+)
+from strotss_torch.ops.losses import content_loss, style_loss
+from strotss_torch.ops.sampling import sample_paired
+
+
+class StepSpec(NamedTuple):
+    """Static configuration of one optimization step.
+
+    ``remd_impl`` and ``selfsim_impl`` select the loss implementations:
+    ``'auto'`` (the CUDA kernels on a CUDA device, the plain versions on
+    the CPU), ``'plain'`` or ``'kernel'``.
+    """
+
+    sample_size: int
+    vgg_type: str
+    taps: tuple
+    preprocess_mode: str
+    compute_dtype: str
+    use_sinkhorn: bool
+    remd_impl: str
+    selfsim_impl: str
+
+
+def spec_from_config(cfg: StrotssConfig) -> StepSpec:
+    impl = "auto" if cfg.use_pallas else "plain"
+    return StepSpec(
+        sample_size=cfg.sample_size,
+        vgg_type=cfg.vgg_type,
+        taps=tuple(cfg.taps or STROTSS_DEFAULT_TAPS),
+        preprocess_mode="keras" if cfg.use_keras_weight else "norm",
+        compute_dtype=cfg.compute_dtype,
+        use_sinkhorn=cfg.use_sinkhorn,
+        remd_impl=impl,
+        selfsim_impl=impl,
+    )
+
+
+def set_precision(spec: StepSpec) -> None:
+    """Matmuls in full float32 (no TF32) everywhere. Convolutions in full
+    float32 under ``compute_dtype='float32'`` (the JAX package's HIGHEST);
+    under the bf16 policy block1's float32 convolutions may use TF32, the
+    counterpart of the JAX package's DEFAULT precision there. These are
+    process-wide PyTorch switches."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = spec.compute_dtype == "bfloat16"
+
+
+class RMSprop:
+    """Keras/optax RMSprop: ``v <- rho v + (1-rho) g^2``,
+    ``p <- p - lr * g / sqrt(v + eps)`` with eps INSIDE the square root
+    (``torch.optim.RMSprop`` computes ``sqrt(v) + eps``). Slots start at
+    zero; the solver makes a new one each scale, as the reference does.
+    Updates the parameters in place."""
+
+    def __init__(self, params: Sequence[torch.Tensor], lr: float,
+                 rho: float = 0.99, eps: float = 1e-8):
+        self.params = list(params)
+        self.lr, self.rho, self.eps = lr, rho, eps
+        self.nu = [torch.zeros_like(p) for p in self.params]
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[torch.Tensor]) -> None:
+        for p, g, nu in zip(self.params, grads, self.nu):
+            nu.copy_((1 - self.rho) * (g * g) + self.rho * nu)
+            p.add_((g * torch.rsqrt(nu + self.eps)) * (-self.lr))
+
+
+def extract_hypercolumn(vgg: VGG, img: torch.Tensor) -> List[torch.Tensor]:
+    """Image -> hypercolumn list [image, tap1..tapK]."""
+    return [img] + vgg(img)
+
+
+def scale_seed(mode: str, chw, shw, levels: int, content, style, prev):
+    """Per-scale init: resize the inputs, build the Laplacian seed, split
+    it into pyramid variables. ``mode`` is 'first' (content Laplacian plus
+    the style's mean colour), 'mid' (resized previous result plus content
+    Laplacian) or 'last' (resized previous result)."""
+    scl_c = resize_bilinear(content, chw)
+    scl_s = resize_bilinear(style, shw)
+    lap = make_laplacian(scl_c)
+    if mode == "first":
+        sty = lap + torch.mean(scl_s, dim=(1, 2), keepdim=True)
+    elif mode == "mid":
+        sty = resize_bilinear(prev, chw) + lap
+    else:
+        sty = resize_bilinear(prev, chw)
+    return scl_c, scl_s, make_laplacian_pyramid(sty, levels)
+
+
+def step_losses(spec: StepSpec, content_feats, pred, style_targets,
+                style_moments, alpha: float, coords: torch.Tensor):
+    """(loss, loss_c, loss_s) of one step at the given sample coords."""
+    c_feat, p_feat = sample_paired(coords, content_feats, pred)
+    lc = content_loss(c_feat, p_feat, impl=spec.selfsim_impl)
+    ls = style_loss(style_targets, p_feat, alpha,
+                    use_sinkhorn=spec.use_sinkhorn,
+                    remd_impl=spec.remd_impl, target_moments=style_moments)
+    denom = 2.0 + alpha + 1.0 / max(alpha, 1.0)
+    return (alpha * lc + ls) / denom, lc, ls
+
+
+def optimization_steps(spec: StepSpec, n_steps: int, vgg: VGG, content_feats,
+                       style_targets, style_moments, alpha: float, pyramid,
+                       opt: RMSprop, coords_fn: Callable[[int], torch.Tensor]):
+    """``n_steps`` (>= 1) of sample -> VGG -> losses -> grad -> RMSprop.
+
+    ``pyramid`` (a list of leaf tensors) is updated in place; the per-step
+    (loss, loss_c, loss_s) rows come back as one (n_steps, 3) tensor on the
+    run's device, so the loop never waits for the card. ``style_moments``
+    are the targets' :func:`moment_stats`, hoisted out of the loop.
+    """
+    rows = []
+    for t in range(n_steps):
+        coords = coords_fn(t)
+        leaves = [p.requires_grad_(True) for p in pyramid]
+        img = fold_laplacian_pyramid(leaves)
+        pred = extract_hypercolumn(vgg, img)
+        loss, lc, ls = step_losses(spec, content_feats, pred, style_targets,
+                                   style_moments, alpha, coords)
+        grads = torch.autograd.grad(loss, leaves)
+        opt.step(grads)
+        rows.append(torch.stack([loss, lc, ls]).detach())
+    return torch.stack(rows)

@@ -1,0 +1,70 @@
+"""The CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: without a CUDA card they skip (the kernels have no CPU
+mode). This file imports neither JAX nor the JAX package, so it also runs
+on a machine with only PyTorch; there the repository's conftest files,
+which configure JAX, are left out::
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+Tolerances: minima and the forward loss to rtol 1e-5 (float32 products
+summed in another order). The backward product, after the pull-back's
+projection, to 1e-4 of its largest entry in all but 1% of the rows: where
+A - B lies within rounding of 0, the kernel and the plain version may
+take opposite signs, which moves the two rows of that pair.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from strotss_torch.ops.kernels import remd, selfsim
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rand(seed, shape, device):
+    a = np.random.default_rng(seed).standard_normal(shape)
+    return torch.tensor(a, dtype=torch.float32, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,c,dist", [(1024, 1024, 2179, "cosine"),
+                                        (1000, 777, 64, "both"),
+                                        (300, 200, 35, "l2")])
+def test_remd_mins_on_card(cuda_device, n, m, c, dist):
+    x, y = _rand(n, (n, c), cuda_device), _rand(m + 7, (m, c), cuda_device)
+    before = remd.mins.launches
+    got = remd.mins(x, y, dist)
+    assert remd.mins.launches == before + 1
+    want = remd.mins_plain(x, y, dist)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0)
+    for a, b in zip(got, remd.mins(x, y, dist)):
+        assert torch.equal(a, b)  # no atomics: bitwise reproducible
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c", [(1024, 2179), (1000, 2179), (200, 35)])
+def test_selfsim_on_card(cuda_device, n, c):
+    x, y = _rand(n, (n, c), cuda_device), _rand(n + 1, (n, c), cuda_device)
+    xh, yh, _, _, cx, cy = selfsim._prep(x, y)
+    loss, tx, ty = selfsim.selfsim_fwd(xh, yh, cx, cy)
+    p_loss, _, _ = selfsim.selfsim_fwd_plain(xh, yh, cx, cy)
+    torch.testing.assert_close(loss, p_loss, rtol=1e-5, atol=0)
+    got = selfsim.selfsim_bwd(xh, yh, cx, cy, tx, ty)
+    want = selfsim.selfsim_bwd_plain(xh, yh, cx, cy, tx, ty)
+
+    def project(u, h):
+        return u - torch.sum(u * h, dim=1, keepdim=True) * h
+
+    for u, pu, h in zip(got, want, (xh, yh)):
+        row_err = (project(u, h) - project(pu, h)).abs().amax(dim=1)
+        bad = row_err > 1e-4 * project(pu, h).abs().max()
+        assert int(bad.sum()) <= n // 100
