@@ -6,10 +6,13 @@ Run from the repository root on a machine with one NVIDIA H100::
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``strotss_torch/csrc``, holds each kernel
-against its plain PyTorch version on the card, runs a short slice of the
-64 px scale with the kernels and with the plain versions, and then drives
-the default stylization (VGG16, 9 taps, 1024 samples, 4 scales to 512 px)
-through ``strotss_torch.stylize``. Each phase prints one JSON line; any
+against its plain PyTorch version on the card (REMD minima, self-
+similarity forward and backward, VGG block1 forward and backward at the
+512 px content and style shapes and the 64 px content shape), runs a
+short slice of the 64 px scale with the kernels and with the plain
+versions, and then drives the default stylization (VGG16, 9 taps, 1024
+samples, 4 scales to 512 px) through ``strotss_torch.stylize``, counting
+each kernel's launches, and profiles 10 steps a scale. Each phase prints one JSON line; any
 failure exits non-zero. The last two lines are the kernels' measurements
 and ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
 """
@@ -24,22 +27,27 @@ import time
 
 import numpy as np
 
-# fp32 peak of the CUDA cores and memory rate, by SKU (NVIDIA data sheets)
+# fp32 peak of the CUDA cores, dense bf16 peak of the tensor cores and
+# memory rate, by SKU (NVIDIA data sheets)
 _PEAKS = {
-    "SXM": (67e12, 3.35e12),
-    "NVL": (60e12, 3.9e12),
-    "PCIE": (51e12, 2.0e12),
+    "SXM": {"fp32": 67e12, "bf16": 989e12, "bytes": 3.35e12},
+    "NVL": {"fp32": 60e12, "bf16": 835e12, "bytes": 3.9e12},
+    "PCIE": {"fp32": 51e12, "bf16": 756e12, "bytes": 2.0e12},
 }
 
 _REPLACES = {
     "remd_mins": "strotss_tpu/ops/kernels/remd.py:142",
     "selfsim_fwd": "strotss_tpu/ops/kernels/selfsim.py:162",
     "selfsim_bwd": "strotss_tpu/ops/kernels/selfsim.py:198",
+    "block1_fwd": "strotss_tpu/ops/kernels/block1.py:194",
+    "block1_bwd": "strotss_tpu/ops/kernels/block1.py:238",
 }
 _SOURCES = {
     "remd_mins": "strotss_torch/csrc/remd.cu",
     "selfsim_fwd": "strotss_torch/csrc/selfsim.cu",
     "selfsim_bwd": "strotss_torch/csrc/selfsim.cu",
+    "block1_fwd": "strotss_torch/csrc/block1.cu",
+    "block1_bwd": "strotss_torch/csrc/block1.cu",
 }
 
 
@@ -106,9 +114,11 @@ def device_ms(fn, names, reps: int = 20):
     return us / 1e3 / reps if us > 0 else "not measured"
 
 
-def bound_ms(flops: float, nbytes: float, rates) -> tuple:
-    t_ops = flops / rates[0] * 1e3
-    t_bytes = nbytes / rates[1] * 1e3
+def bound_ms(flops: float, nbytes: float, rates, ops: str = "fp32") -> tuple:
+    """(least ms, what sets it) for ``flops`` operations at the ``ops``
+    peak and ``nbytes`` at the memory rate."""
+    t_ops = flops / rates[ops] * 1e3
+    t_bytes = nbytes / rates["bytes"] * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -375,6 +385,97 @@ def check_selfsim(n, c, seed, rates):
     return out
 
 
+def check_block1(h, w, seed, rates):
+    """K3a and K3b against their plain versions at one (H, W)."""
+    import torch
+    import torch.nn.functional as F
+
+    from strotss_torch.models.weights import random_params
+    from strotss_torch.ops.kernels import block1 as B
+
+    p = random_params("16", seed)
+    k1 = p["block1_conv1"]["kernel"].cuda()
+    k2 = p["block1_conv2"]["kernel"].cuda()
+    b1 = 0.1 * _inputs(seed + 1, (64,))
+    b2 = 0.1 * _inputs(seed + 2, (64,))
+    x = _inputs(seed + 3, (h, w, 3))
+    g1 = _inputs(seed + 4, (h, w, 64))
+    g2 = _inputs(seed + 5, (h, w, 64))
+    name = f"block1 {h}x{w}"
+
+    t1, t2 = B.block1_fwd(x, k1, b1, k2, b2)
+    again = B.block1_fwd(x, k1, b1, k2, b2)
+    check(torch.equal(t1, again[0]) and torch.equal(t2, again[1]),
+          f"{name}: two forward runs differ")
+    dx = B.block1_bwd(t1, t2, g1, g2, k1, k2)
+    check(torch.equal(dx, B.block1_bwd(t1, t2, g1, g2, k1, k2)),
+          f"{name}: two backward runs differ")
+    # Plain versions on the same inputs (the backward on the kernel's taps).
+    # tap1 to 1e-5 of its max (float32 sums of exact bf16 products in
+    # another order); tap2 and dx to 1e-3: where that order moves y1 or dy1
+    # across a bf16 rounding boundary, one operand moves by 2^-8.
+    p1, p2 = B.block1_plain(x, k1, b1, k2, b2)
+    pdx = B.block1_bwd_plain(t1, t2, g1, g2, k1, k2)
+    e1, e2, edx = _grad_err(t1, p1), _grad_err(t2, p2), _grad_err(dx, pdx)
+    check(e1 <= 1e-5 and e2 <= 1e-3 and edx <= 1e-3,
+          f"{name}: errors against the plain version (of max|ref|) tap1 "
+          f"{e1}, tap2 {e2}, dx {edx}")
+    # what the errors are made of: entries of y1 whose bf16 rounding the
+    # two sum orders take to different sides, and the kernel against the
+    # plain version summed in float64
+    y1_flips = int((t1.to(torch.bfloat16) != p1.to(torch.bfloat16)).sum())
+    d = [t.double() for t in (x, k1, b1, k2, b2, t1, t2, g1, g2)]
+    q1, q2 = B.block1_plain(*d[:5])
+    qdx = B.block1_bwd_plain(*d[5:], d[1], d[3])
+    vs64 = [_grad_err(a, b) for a, b in ((t1, q1), (t2, q2), (dx, qdx))]
+
+    # yardstick: cuDNN at the same shape, two bf16 F.conv2d + bias + ReLU
+    # and their autograd backward
+    bf = torch.bfloat16
+    xb = x.permute(2, 0, 1)[None].to(bf).requires_grad_(True)
+    kb1, kb2, bb1, bb2 = (t.to(bf) for t in (k1, k2, b1, b2))
+
+    def lib_fwd():
+        y1 = torch.relu(F.conv2d(xb, kb1, bb1, padding=1))
+        return y1, torch.relu(F.conv2d(y1, kb2, bb2, padding=1))
+
+    ly1, ly2 = lib_fwd()
+    gb = [g.permute(2, 0, 1)[None].to(bf) for g in (g1, g2)]
+    flops = 2.0 * h * w * 64 * (27 + 576)
+    wbytes = 4.0 * (64 * 27 + 64 + 64 * 576 + 64)
+    fwd_bytes = h * w * (3 + 2 * 64) * 4.0 + wbytes
+    bwd_bytes = h * w * (4 * 64 + 3) * 4.0 + wbytes
+    out = {
+        "fwd": {"shape": [h, w], "max_abs_err": float(max(
+                    (t1 - p1).abs().max(), (t2 - p2).abs().max())),
+                "tap1_err": e1, "tap2_err": e2, "y1_flips": y1_flips,
+                "tap1_err_vs_f64": vs64[0], "tap2_err_vs_f64": vs64[1],
+                "ms": time_ms(lambda: B.block1_fwd(x, k1, b1, k2, b2)),
+                "device_ms": device_ms(
+                    lambda: B.block1_fwd(x, k1, b1, k2, b2),
+                    ("block1_fwd_kernel",)),
+                "plain_ms": time_ms(lambda: B.block1_plain(x, k1, b1, k2,
+                                                           b2)),
+                "library_ms": time_ms(lib_fwd),
+                **dict(zip(("bound_ms", "bound_by"),
+                           bound_ms(flops, fwd_bytes, rates, "bf16")))},
+        "bwd": {"shape": [h, w], "max_abs_err": float((dx - pdx).abs().max()),
+                "dx_err": edx, "dx_err_vs_f64": vs64[2],
+                "ms": time_ms(lambda: B.block1_bwd(t1, t2, g1, g2, k1, k2)),
+                "device_ms": device_ms(
+                    lambda: B.block1_bwd(t1, t2, g1, g2, k1, k2),
+                    ("block1_dy1_kernel", "block1_dx_kernel")),
+                "plain_ms": time_ms(lambda: B.block1_bwd_plain(
+                    t1, t2, g1, g2, k1, k2)),
+                "library_ms": time_ms(lambda: torch.autograd.grad(
+                    (ly1, ly2), [xb], gb, retain_graph=True)),
+                **dict(zip(("bound_ms", "bound_by"),
+                           bound_ms(flops, bwd_bytes, rates, "bf16")))},
+    }
+    emit({"phase": "kernel", "name": "block1", **out})
+    return out
+
+
 def phase_kernels(rates):
     import torch
 
@@ -385,7 +486,12 @@ def phase_kernels(rates):
     check_remd(1000, 777, 2179, "both", 5, rates)
     ss_main = check_selfsim(1024, 2179, 7, rates)
     check_selfsim(1000, 2179, 9, rates)
-    return {"remd_mins": (remd_main, remd_yuv), "selfsim": ss_main}
+    # the 512 px content and style scales, and the smallest content scale
+    b1_main = check_block1(384, 512, 11, rates)
+    check_block1(512, 398, 13, rates)
+    check_block1(48, 64, 15, rates)
+    return {"remd_mins": (remd_main, remd_yuv), "selfsim": ss_main,
+            "block1": b1_main}
 
 
 def _smooth_image(h: int, w: int, seed: int) -> np.ndarray:
@@ -411,10 +517,20 @@ def phase_slice(vgg_params):
     and cuDNN's and the gathers' backward passes are not bitwise
     reproducible (the plain path run twice differs by ~2% in loss after
     10 bf16 steps). So each step is evaluated with the kernels and with
-    the plain versions from the same pyramid and coordinates, the losses
-    are held to rtol 1e-3, and the run goes on with the kernels'
-    gradient. The kernels' gradients are held to their plain versions in
-    the kernel phase.
+    the plain versions from the same pyramid and coordinates, and the run
+    goes on with the kernels' gradient. The kernels' gradients are held
+    to their plain versions in the kernel phase. Each step holds:
+
+    - the plain losses on the kernel route's features to rtol 1e-3 (K1,
+      K2a: float32 sums in another order);
+    - the block1 taps of the kernel and of its plain version to 1e-5
+      (tap1) and 1e-3 (tap2) of their largest values, as in the kernel
+      phase;
+    - the all-plain loss to rtol 2^-8. Blocks 2-5 run in bf16, so where
+      block1's rounding flips an entry of tap2 by one bf16 step, the deep
+      taps differ by one bf16 step in some entries (3e-3 to 5e-3 of their
+      largest values at the 64 px scale) and the loss moves by up to ~5e-4
+      (the cuDNN route differs from the kernel route by as much).
     """
     import torch
 
@@ -430,15 +546,25 @@ def phase_slice(vgg_params):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     cfg = strotss_torch.StrotssConfig(levels=1, max_iter=10)
-    spec_k = programs.spec_from_config(cfg)
-    spec_p = spec_k._replace(remd_impl="plain", selfsim_impl="plain")
+    spec_k = programs.spec_from_config(cfg, "cuda")
+    spec_p = spec_k._replace(remd_impl="plain", selfsim_impl="plain",
+                             block1_impl="plain")
+    check(spec_k.block1_impl == "pallas",
+          f"slice: block1 route {spec_k.block1_impl!r}, want 'pallas'")
     programs.set_precision(spec_k)
+    # The plain block1 runs float32 convolutions on bf16-rounded operands:
+    # exact products only without TF32, whose Winograd-type algorithms
+    # round transformed operands (the kernel route uses no cuDNN there).
+    torch.backends.cudnn.allow_tf32 = False
     c = torch.tensor(content, device="cuda")
     s = torch.tensor(style, device="cuda")
     mode, chw, shw = solve.scale_mode_shapes(cfg, c.shape, s.shape, 0, 64)
-    vgg = VGG({k: {n: t.cuda() for n, t in p.items()}
-               for k, p in vgg_params.items()}, taps=spec_k.taps,
-              compute_dtype=spec_k.compute_dtype)
+    params = {k: {n: t.cuda() for n, t in p.items()}
+              for k, p in vgg_params.items()}
+    vgg, vgg_p, vgg_x = (VGG(params, taps=spec_k.taps,
+                             compute_dtype=spec_k.compute_dtype,
+                             block1_impl=b1)
+                         for b1 in (spec_k.block1_impl, "plain", "xla"))
     n = cfg.sample_size
     with torch.no_grad():
         scl_c, scl_s, pyramid = programs.scale_seed(
@@ -451,7 +577,10 @@ def phase_slice(vgg_params):
     pyramid = [p.contiguous() for p in pyramid]
     opt = programs.RMSprop(pyramid, cfg.lr)
     alpha = cfg.initial_alpha()
-    loss_err, forced = [], []
+    err = {k: [] for k in ("loss_rel_err", "losses_rel_err", "tap1_err",
+                           "tap2_err", "deep_taps_err",
+                           "cudnn_route_loss_rel_err")}
+    forced = []
     for t in range(cfg.max_iter):
         step_coords = sampling.strided_grid_coords(gen, chw, n, "cuda")
         leaves = [p.requires_grad_(True) for p in pyramid]
@@ -462,22 +591,40 @@ def phase_slice(vgg_params):
                                           step_coords)
         grads = torch.autograd.grad(loss, leaves)
         with torch.no_grad():
-            pred = programs.extract_hypercolumn(
-                vgg, fold_laplacian_pyramid(pyramid))
-            plain, _, _ = programs.step_losses(spec_p, content_feats, pred,
+            plain_losses, _, _ = programs.step_losses(
+                spec_p, content_feats, pred, targets, moments, alpha,
+                step_coords)
+            pred_p = programs.extract_hypercolumn(
+                vgg_p, fold_laplacian_pyramid(pyramid))
+            plain, _, _ = programs.step_losses(spec_p, content_feats, pred_p,
                                                targets, moments, alpha,
                                                step_coords)
-        lk, lp = float(loss.detach()), float(plain)
+            # yardstick, not checked: block1 on cuDNN (no TF32 here)
+            cudnn, _, _ = programs.step_losses(
+                spec_k, content_feats, programs.extract_hypercolumn(
+                    vgg_x, fold_laplacian_pyramid(pyramid)),
+                targets, moments, alpha, step_coords)
+        lk = float(loss.detach())
         forced.append(lk)
-        loss_err.append(abs(lk - lp) / abs(lp))
+        err["loss_rel_err"].append(abs(lk - float(plain)) / abs(float(plain)))
+        err["losses_rel_err"].append(abs(lk - float(plain_losses))
+                                     / abs(float(plain_losses)))
+        err["tap1_err"].append(_grad_err(pred[1].detach(), pred_p[1]))
+        err["tap2_err"].append(_grad_err(pred[2].detach(), pred_p[2]))
+        err["deep_taps_err"].append(max(_grad_err(a.detach(), b) for a, b
+                                        in zip(pred[3:], pred_p[3:])))
+        err["cudnn_route_loss_rel_err"].append(abs(lk - float(cudnn))
+                                               / abs(lk))
         opt.step(grads)
 
     emit({"phase": "slice", "scale": 64, "steps": cfg.max_iter,
-          "loss": forced, "loss_rel_err": loss_err})
+          "loss": forced, **err})
     check(bool(np.all(np.isfinite(forced))), "slice: non-finite loss")
-    check(max(loss_err) <= 1e-3,
-          f"slice: kernel and plain losses differ by {max(loss_err)} at "
-          "the same state")
+    limits = {"loss_rel_err": 2.0 ** -8, "losses_rel_err": 1e-3,
+              "tap1_err": 1e-5, "tap2_err": 1e-3}
+    for k, limit in limits.items():
+        check(max(err[k]) <= limit,
+              f"slice: {k} {max(err[k])} > {limit} at the same state")
 
 
 def phase_main():
@@ -487,20 +634,22 @@ def phase_main():
     import torch
 
     import strotss_torch
-    from strotss_torch.ops.kernels import remd, selfsim
+    from strotss_torch.ops.kernels import block1, remd, selfsim
 
     cfg = strotss_torch.StrotssConfig()
     content = _smooth_image(480, 640, 21)
     style = _smooth_image(720, 560, 22)
-    for fn in (remd.mins, selfsim.selfsim_fwd, selfsim.selfsim_bwd):
+    counted = {"remd_mins": remd.mins, "selfsim_fwd": selfsim.selfsim_fwd,
+               "selfsim_bwd": selfsim.selfsim_bwd,
+               "block1_fwd": block1.block1_fwd,
+               "block1_bwd": block1.block1_bwd}
+    for fn in counted.values():
         fn.launches = 0
     t0 = time.perf_counter()
     img, info = strotss_torch.stylize(content, style, cfg)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"remd_mins": remd.mins.launches,
-                "selfsim_fwd": selfsim.selfsim_fwd.launches,
-                "selfsim_bwd": selfsim.selfsim_bwd.launches}
+    launches = {name: fn.launches for name, fn in counted.items()}
     steps = cfg.levels * cfg.max_iter
     scales = [{"scale": s["scale"], "seconds": s["seconds"],
                "first_loss": float(s["curve"][0, 0]),
@@ -522,37 +671,19 @@ def phase_main():
     check(img.dtype == torch.uint8 and tuple(img.shape) == (384, 512, 3),
           f"main: output {img.dtype} {tuple(img.shape)}, want uint8 "
           "(384, 512, 3)")
+    # block1's forward also runs once for the content and once for the
+    # style at each scale
     want = {"remd_mins": 2 * steps, "selfsim_fwd": steps,
-            "selfsim_bwd": steps}
+            "selfsim_bwd": steps, "block1_fwd": steps + 2 * cfg.levels,
+            "block1_bwd": steps}
     check(launches == want, f"main: launches {launches}, want {want}")
     return launches
 
 
-def phase_profile(vgg_params):
-    """Where a step's time goes: torch.profiler over 10 steps at each of
-    the 4 scales. Device kernel time by name, and its share of the wall
-    clock of the same run made without the profiler. Reports "not
-    measured" if the profiler sees no device time. Scale set-up (two VGG
-    forwards, target sampling) is inside the 40 steps' wall time."""
+def _device_rows(prof):
+    """(kernel name, device ms, count) rows of a profile, largest first."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    import strotss_torch
-
-    cfg = strotss_torch.StrotssConfig(max_iter=10)
-    content = _smooth_image(480, 640, 31)
-    style = _smooth_image(720, 560, 32)
-    t0 = time.perf_counter()
-    strotss_torch.stylize(content, style, cfg, vgg_params=vgg_params)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0  # unprofiled, after the build warm-up
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _, info = strotss_torch.stylize(content, style, cfg,
-                                        vgg_params=vgg_params)
-        torch.cuda.synchronize()
-        wall_profiled = time.perf_counter() - t0
     rows = []
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
@@ -563,23 +694,73 @@ def phase_profile(vgg_params):
         if dev_us > 0:
             rows.append((ev.key, dev_us / 1e3, ev.count))
     rows.sort(key=lambda r: -r[1])
-    device_ms = sum(r[1] for r in rows)
-    steps = cfg.levels * cfg.max_iter
+    return rows
+
+
+def phase_profile(vgg_params):
+    """Where a step's time goes: torch.profiler over 10 steps at each of
+    the 4 scales. Device kernel time by name, and its share of the wall
+    clock of the same run made without the profiler. Reports "not
+    measured" if the profiler sees no device time. Scale set-up (two VGG
+    forwards, target sampling) is inside the 40 steps' wall time.
+
+    The same is measured with block1 on cuDNN (``block1_impl='xla'``) as
+    a yardstick for the fused kernel, unprofiled runs in the order kernel,
+    cuDNN, cuDNN, kernel on one card."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import strotss_torch
+
+    cfgs = {"kernel": strotss_torch.StrotssConfig(max_iter=10)}
+    cfgs["xla"] = dataclasses.replace(cfgs["kernel"], block1_impl="xla")
+    content = _smooth_image(480, 640, 31)
+    style = _smooth_image(720, 560, 32)
+    steps = cfgs["kernel"].levels * cfgs["kernel"].max_iter
+
+    def run(cfg):
+        t0 = time.perf_counter()
+        _, info = strotss_torch.stylize(content, style, cfg,
+                                        vgg_params=vgg_params)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, info
+
+    walls = {"kernel": [], "xla": []}
+    for route in ("kernel", "xla", "xla", "kernel"):
+        walls[route].append(run(cfgs[route])[0])  # after the build warm-up
+    out = {}
+    for route, cfg in cfgs.items():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall_profiled, info = run(cfg)
+        rows = _device_rows(prof)
+        device_ms = sum(r[1] for r in rows)
+        wall = statistics.mean(walls[route])
+        out[route] = {
+            "wall_s": walls[route], "wall_ms_per_step": wall * 1e3 / steps,
+            "wall_ms_per_step_profiled": wall_profiled * 1e3 / steps,
+            "device_ms_per_step": (device_ms / steps) if rows
+            else "not measured",
+            "device_busy_share": (device_ms / 1e3 / wall) if rows
+            else "not measured",
+            "scale_seconds": [s["seconds"] for s in info["scales"]],
+            "rows": rows}
     ours = {"remd_tile_kernel", "remd_reduce_kernel", "selfsim_fwd_kernel",
             "selfsim_fwd_reduce_kernel", "selfsim_gmat_kernel",
-            "selfsim_apply_kernel"}
-    ours_ms = sum(r[1] for r in rows if any(o in r[0] for o in ours))
-    emit({"phase": "profile", "steps": steps, "wall_s": wall,
-          "wall_ms_per_step": wall * 1e3 / steps,
-          "wall_ms_per_step_profiled": wall_profiled * 1e3 / steps,
-          "device_ms_per_step": (device_ms / steps) if rows
-          else "not measured",
-          "device_busy_share": (device_ms / 1e3 / wall) if rows
-          else "not measured",
-          "port_kernels_ms_per_step": ours_ms / steps,
-          "scale_seconds": [s["seconds"] for s in info["scales"]],
+            "selfsim_apply_kernel", "block1_fwd_kernel", "block1_dy1_kernel",
+            "block1_dx_kernel"}
+    rows = out["kernel"].pop("rows")
+    by_kernel = {o: sum(r[1] for r in rows if o in r[0]) / steps
+                 for o in sorted(ours)}
+    emit({"phase": "profile", "steps": steps, **out["kernel"],
+          "port_kernels_ms_per_step": sum(by_kernel.values()),
+          "port_kernel_ms_per_step": by_kernel,
           "top_device": [{"name": k[:80], "ms": ms, "count": n}
-                         for k, ms, n in rows[:15]]})
+                         for k, ms, n in rows[:15]],
+          "block1_cudnn_route": {k: v for k, v in out["xla"].items()
+                                 if k != "rows"}})
 
 
 def kernels_line(meas, launches):
@@ -596,6 +777,8 @@ def kernels_line(meas, launches):
     rows.append(("remd_mins", entry))
     rows.append(("selfsim_fwd", meas["selfsim"]["fwd"]))
     rows.append(("selfsim_bwd", meas["selfsim"]["bwd"]))
+    rows.append(("block1_fwd", meas["block1"]["fwd"]))
+    rows.append(("block1_bwd", meas["block1"]["bwd"]))
     out = []
     for name, m in rows:
         out.append({

@@ -6,7 +6,8 @@ CPU instead, and without a card and without ``--cpu`` the run stops with
 an error rather than falling back. Flags of paths not ported yet (masks,
 ``--init``, blended styles, ``--sinkhorn``, ``--checkpoint_dir``,
 ``--start_level``, ``--remat``, ``--profile_dir``) raise a clear error.
-``--no_pallas`` takes the plain PyTorch versions of the kernels;
+``--no_pallas`` takes the plain PyTorch versions of the loss kernels and
+runs VGG block1 as ``F.conv2d`` (cuDNN on the card) instead of kernel K3;
 ``--no_precompile`` is accepted and changes nothing (nothing is compiled
 ahead of the run).
 """

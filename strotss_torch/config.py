@@ -3,8 +3,8 @@
 The port's own copy of ``strotss_tpu/config.py``'s ``StrotssConfig``, with
 the same fields and defaults (a test holds them equal). Importing the JAX
 package's module would import JAX, so the port keeps this copy. Fields of
-paths not ported yet (masks, warm start, checkpoints, Sinkhorn, sharding,
-the block1 kernel) exist so that configurations carry over; the port
+paths not ported yet (masks, warm start, checkpoints, Sinkhorn, sharding)
+exist so that configurations carry over; the port
 raises where one of them asks for such a path.
 """
 
@@ -57,7 +57,9 @@ class StrotssConfig:
     #: run the hand-written kernels ('auto' on CUDA tensors); False takes
     #: the plain PyTorch versions
     use_pallas: bool = True
-    #: VGG block1 implementation: only 'auto'/'xla' (F.conv2d) are ported
+    #: VGG block1 route: 'auto' (the fused CUDA kernel K3 on a card under
+    #: the bf16 policy and use_pallas, F.conv2d otherwise), 'pallas' (fused;
+    #: its plain version on the CPU) or 'xla' (F.conv2d)
     block1_impl: str = "auto"
     #: optional torch.profiler trace directory (not ported yet)
     profile_dir: Optional[str] = None

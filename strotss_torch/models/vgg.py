@@ -8,8 +8,17 @@ arrays). The forward pass takes an NHWC image in [0, 1], runs NCHW
 is the post-ReLU activation of its conv, returned as an NHWC view.
 
 Under ``compute_dtype='bfloat16'`` it keeps the JAX package's mixed
-policy: block1 runs with float32 operands and float32-stored taps, blocks
-2-5 in bfloat16 (the convolution accumulates in float32 inside cuDNN).
+policy: block1 runs with float32-stored taps, blocks 2-5 in bfloat16 (the
+convolution accumulates in float32 inside cuDNN). ``block1_impl`` picks
+block1's route, as the JAX package's does: ``'xla'`` runs it as two
+float32 ``F.conv2d`` calls; ``'pallas'`` runs it fused through
+:func:`strotss_torch.ops.kernels.block1.block1` (kernel K3 on a CUDA
+tensor, its plain version on the CPU), with bf16 operands and float32
+sums, the rounding of the JAX package's DEFAULT-precision block1;
+``'plain'`` takes that fused function's plain version on any device (to
+hold the kernel to it on the card). The fused route is taken only under
+the bf16 policy, for one image, and when a tap lies past
+``block1_conv1``; otherwise block1 runs as ``'xla'``.
 """
 
 from __future__ import annotations
@@ -18,6 +27,8 @@ from typing import Dict, List, Sequence
 
 import torch
 import torch.nn.functional as F
+
+from strotss_torch.ops.kernels import block1 as _block1
 
 STROTSS_DEFAULT_TAPS = (
     "block1_conv1",
@@ -89,8 +100,15 @@ def vgg_apply(
     vgg_type: str = "16",
     preprocess_mode: str = "norm",
     compute_dtype: str = "float32",
+    block1_impl: str = "xla",
 ) -> List[torch.Tensor]:
-    """Run VGG on an NHWC [0,1] RGB image; return the taps (NHWC views)."""
+    """Run VGG on an NHWC [0,1] RGB image; return the taps (NHWC views).
+
+    ``block1_impl``: ``'xla'``, ``'pallas'`` or ``'plain'`` (module doc).
+    """
+    if block1_impl not in ("xla", "pallas", "plain"):
+        raise ValueError("block1_impl must be 'xla', 'pallas' or 'plain', "
+                         f"got {block1_impl!r}")
     taps = list(taps)
     names = vgg_layer_names(vgg_type)
     deepest = max(names.index(t) for t in taps)
@@ -99,9 +117,24 @@ def vgg_apply(
     h = preprocess(x.float(), preprocess_mode).permute(0, 3, 1, 2)
     outs: Dict[str, torch.Tensor] = {}
     idx = 0
+    fuse_b1 = (block1_impl != "xla" and mixed and x.shape[0] == 1
+               and deepest >= 1)
     for b, n_convs in enumerate(_BLOCK_CONVS[str(vgg_type)]):
         dt = torch.float32 if (mixed and b == 0) else dtype
         h = h.to(dt)
+        if b == 0 and fuse_b1:
+            p1, p2 = params["block1_conv1"], params["block1_conv2"]
+            t1, t2 = _block1.block1(
+                h[0].permute(1, 2, 0), p1["kernel"], p1["bias"],
+                p2["kernel"], p2["bias"],
+                impl="auto" if block1_impl == "pallas" else "plain")
+            outs["block1_conv1"], outs["block1_conv2"] = t1[None], t2[None]
+            if deepest == 1:
+                return [outs[t] for t in taps]
+            h = F.max_pool2d(t2.permute(2, 0, 1)[None], kernel_size=2,
+                             stride=2)
+            idx = 2
+            continue
         for _ in range(n_convs):
             name = names[idx]
             h = _conv(h, params[name], dt)
@@ -120,9 +153,11 @@ class VGG(torch.nn.Module):
     hypercolumn)."""
 
     def __init__(self, params, taps=STROTSS_DEFAULT_TAPS, vgg_type="16",
-                 preprocess_mode="norm", compute_dtype="float32"):
+                 preprocess_mode="norm", compute_dtype="float32",
+                 block1_impl="xla"):
         super().__init__()
         self.taps = tuple(taps)
+        self.block1_impl = block1_impl
         self.vgg_type = str(vgg_type)
         self.preprocess_mode = preprocess_mode
         self.compute_dtype = compute_dtype
@@ -137,4 +172,5 @@ class VGG(torch.nn.Module):
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         return vgg_apply(self.params(), x, self.taps, self.vgg_type,
-                         self.preprocess_mode, self.compute_dtype)
+                         self.preprocess_mode, self.compute_dtype,
+                         self.block1_impl)

@@ -1,0 +1,176 @@
+"""Fused VGG block1: CUDA kernels K3a (forward) and K3b (backward).
+
+Counterpart of ``strotss_tpu/ops/kernels/block1.py``. Block1 is conv
+3->64, ReLU, conv 64->64, ReLU with SAME padding. With x the preprocessed
+(H, W, 3) image, the forward returns both taps, (H, W, 64) float32:
+
+    tap1 = relu(conv(r(x), r(k1)) + b1)
+    tap2 = relu(conv(r(tap1), r(k2)) + b2)
+
+and the backward returns the image gradient only (the VGG weights are
+frozen; their cotangents are zero, as in the JAX package):
+
+    dz2 = r(g2 * [tap2 > 0])
+    dy1 = r(conv^T(dz2, r(k2)) * [tap1 > 0] + r(g1 * [tap1 > 0]))
+    dx  = conv^T(dy1, r(k1))
+
+where r rounds to ``mul_dtype`` (bf16 in the shipped policy) at the points
+where the TPU kernel rounds, and every sum is float32. The ReLU mask is
+strict, so the gradient at exactly 0 is 0.
+
+``block1_fwd`` and ``block1_bwd`` are the wrappers: on CUDA tensors they
+launch the kernels of ``csrc/block1.cu`` (whose header states their bound
+and design) and count the launches; on CPU tensors they compute the same
+with the plain versions below. Weights arrive as the port's OIHW tensors
+and are laid out for the kernels here.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch.nn.grad import conv2d_input
+
+from strotss_torch.ops.kernels import build
+from strotss_torch.ops.kernels.common import check_cuda_f32, resolve_impl
+
+
+def _r(t: torch.Tensor, mul_dtype: torch.dtype) -> torch.Tensor:
+    """``t`` rounded to ``mul_dtype`` and back to its own dtype."""
+    return t.to(mul_dtype).to(t.dtype)
+
+
+def _nchw(t: torch.Tensor) -> torch.Tensor:
+    return t.permute(2, 0, 1)[None]
+
+
+def _hwc(t: torch.Tensor) -> torch.Tensor:
+    return t[0].permute(1, 2, 0).contiguous()
+
+
+def block1_plain(x, k1, b1, k2, b2, mul_dtype=torch.bfloat16):
+    """(tap1, tap2), both (H, W, 64), from x (H, W, 3); sums in x's dtype
+    (float32; float64 gives the exactly summed reference)."""
+    y1 = torch.relu(F.conv2d(_nchw(_r(x, mul_dtype)), _r(k1, mul_dtype),
+                             padding=1) + b1[:, None, None])
+    y2 = torch.relu(F.conv2d(_r(y1, mul_dtype), _r(k2, mul_dtype),
+                             padding=1) + b2[:, None, None])
+    return _hwc(y1), _hwc(y2)
+
+
+def block1_bwd_plain(tap1, tap2, g1, g2, k1, k2, mul_dtype=torch.bfloat16):
+    """dx (H, W, 3) for the cotangents g1, g2 of the two taps; sums in
+    the taps' dtype."""
+    h, w, _ = tap1.shape
+    m1 = (tap1 > 0).to(tap1.dtype)
+    dz2 = _r(g2 * (tap2 > 0), mul_dtype)
+    g1m = _r(g1 * m1, mul_dtype)
+    acc = conv2d_input((1, 64, h, w), _r(k2, mul_dtype), _nchw(dz2),
+                       padding=1)
+    dy1 = _r(_hwc(acc) * m1 + g1m, mul_dtype)
+    return _hwc(conv2d_input((1, 3, h, w), _r(k1, mul_dtype), _nchw(dy1),
+                             padding=1))
+
+
+def _check_bf16(mul_dtype) -> None:
+    if mul_dtype != torch.bfloat16:
+        raise ValueError("the block1 kernels compute with bfloat16 operands "
+                         f"only, got mul_dtype={mul_dtype}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def block1_fwd(x, k1, b1, k2, b2, mul_dtype=torch.bfloat16):
+    """(tap1, tap2): kernel K3a on CUDA tensors."""
+    if not x.is_cuda:
+        return block1_plain(x, k1, b1, k2, b2, mul_dtype)
+    _check_bf16(mul_dtype)
+    h, w, _ = x.shape
+    check_cuda_f32("x", x, (h, w, 3))
+    check_cuda_f32("k1", k1, (64, 3, 3, 3))
+    check_cuda_f32("k2", k2, (64, 64, 3, 3))
+    # [ky][kx][ci][co]: k1 bf16-rounded float32, k2 bf16
+    k1c = _r(k1.permute(2, 3, 1, 0), mul_dtype).contiguous()
+    k2c = k2.permute(2, 3, 1, 0).to(torch.bfloat16).contiguous()
+    b1c, b2c = b1.float().contiguous(), b2.float().contiguous()
+    check_cuda_f32("b1", b1c, (64,))
+    check_cuda_f32("b2", b2c, (64,))
+    tap1 = torch.empty((h, w, 64), dtype=torch.float32, device=x.device)
+    tap2 = torch.empty_like(tap1)
+    with torch.cuda.device(x.device):
+        build.launch("block1_fwd", x.data_ptr(), k1c.data_ptr(),
+                     b1c.data_ptr(), k2c.data_ptr(), b2c.data_ptr(), h, w,
+                     tap1.data_ptr(), tap2.data_ptr(), _stream(x))
+    block1_fwd.launches += 1
+    return tap1, tap2
+
+
+block1_fwd.launches = 0
+
+
+def block1_bwd(tap1, tap2, g1, g2, k1, k2, mul_dtype=torch.bfloat16):
+    """dx: kernel K3b (its two launches count as one) on CUDA tensors."""
+    if not tap1.is_cuda:
+        return block1_bwd_plain(tap1, tap2, g1, g2, k1, k2, mul_dtype)
+    _check_bf16(mul_dtype)
+    h, w, _ = tap1.shape
+    for name, t in (("tap1", tap1), ("tap2", tap2), ("g1", g1), ("g2", g2)):
+        check_cuda_f32(name, t, (h, w, 64))
+    check_cuda_f32("k1", k1, (64, 3, 3, 3))
+    check_cuda_f32("k2", k2, (64, 64, 3, 3))
+    # the transposed convolutions as plain ones: kernels flipped in both
+    # spatial axes, channel axes swapped. k2r [ky][kx][co][ci] bf16;
+    # k1r [ky][kx][co][c] bf16-rounded float32, c padded to 4
+    k2r = k2.flip(2, 3).permute(2, 3, 0, 1).to(torch.bfloat16).contiguous()
+    k1r = F.pad(_r(k1.flip(2, 3).permute(2, 3, 0, 1), mul_dtype),
+                (0, 1)).contiguous()
+    dy1 = torch.empty((h, w, 64), dtype=torch.bfloat16, device=tap1.device)
+    dx = torch.empty((h, w, 3), dtype=torch.float32, device=tap1.device)
+    with torch.cuda.device(tap1.device):
+        build.launch("block1_bwd", tap1.data_ptr(), tap2.data_ptr(),
+                     g1.data_ptr(), g2.data_ptr(), k2r.data_ptr(),
+                     k1r.data_ptr(), h, w, dy1.data_ptr(), dx.data_ptr(),
+                     _stream(tap1))
+    block1_bwd.launches += 1
+    return dx
+
+
+block1_bwd.launches = 0
+
+
+class Block1(torch.autograd.Function):
+    """(tap1, tap2) through K3a, the image gradient through K3b; with
+    ``use_kernel`` False, through the plain versions on any device."""
+
+    @staticmethod
+    def forward(ctx, x, k1, b1, k2, b2, mul_dtype, use_kernel):
+        fwd = block1_fwd if use_kernel else block1_plain
+        tap1, tap2 = fwd(x, k1, b1, k2, b2, mul_dtype)
+        ctx.save_for_backward(tap1, tap2, k1, b1, k2, b2)
+        ctx.mul_dtype, ctx.use_kernel = mul_dtype, use_kernel
+        return tap1, tap2
+
+    @staticmethod
+    def backward(ctx, g1, g2):
+        tap1, tap2, k1, b1, k2, b2 = ctx.saved_tensors
+        g1 = torch.zeros_like(tap1) if g1 is None else g1.contiguous()
+        g2 = torch.zeros_like(tap2) if g2 is None else g2.contiguous()
+        bwd = block1_bwd if ctx.use_kernel else block1_bwd_plain
+        dx = bwd(tap1, tap2, g1, g2, k1, k2, ctx.mul_dtype)
+        # frozen weights: zero cotangents, as the JAX package returns
+        zero = [torch.zeros_like(t) if need else None for need, t in
+                zip(ctx.needs_input_grad[1:5], (k1, b1, k2, b2))]
+        return (dx, *zero, None, None)
+
+
+def block1(x, k1, b1, k2, b2, mul_dtype=torch.bfloat16, impl: str = "auto"):
+    """Differentiable fused block1 of x (H, W, 3): (tap1, tap2).
+
+    ``impl``: ``'kernel'`` (K3a/K3b), ``'plain'`` (the plain versions) or
+    ``'auto'`` (the kernels on CUDA tensors). Weights are OIHW.
+    """
+    use_kernel = resolve_impl(impl, x) == "kernel"
+    return Block1.apply(x.contiguous(), k1.contiguous(), b1, k2.contiguous(),
+                        b2, mul_dtype, use_kernel)

@@ -22,7 +22,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "strotss_torch")
-SOURCES = ("remd", "selfsim")
+SOURCES = ("remd", "selfsim", "block1")
 
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -39,6 +39,8 @@ _SIGNATURES = {
     "remd_mins": ("remd", [_P, _P, _I, _I, _I, _I] + [_P] * 8 + [_P]),
     "selfsim_fwd": ("selfsim", [_P] * 4 + [_I, _I] + [_P] * 6 + [_P]),
     "selfsim_bwd": ("selfsim", [_P] * 6 + [_I, _I] + [_P] * 4 + [_P]),
+    "block1_fwd": ("block1", [_P] * 5 + [_I, _I] + [_P] * 2 + [_P]),
+    "block1_bwd": ("block1", [_P] * 6 + [_I, _I] + [_P] * 2 + [_P]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -34,7 +34,9 @@ class StepSpec(NamedTuple):
 
     ``remd_impl`` and ``selfsim_impl`` select the loss implementations:
     ``'auto'`` (the CUDA kernels on a CUDA device, the plain versions on
-    the CPU), ``'plain'`` or ``'kernel'``.
+    the CPU), ``'plain'`` or ``'kernel'``. ``block1_impl`` is VGG block1's
+    route for the run's device, ``'pallas'`` (fused, kernel K3) or
+    ``'xla'`` (``F.conv2d``).
     """
 
     sample_size: int
@@ -45,9 +47,33 @@ class StepSpec(NamedTuple):
     use_sinkhorn: bool
     remd_impl: str
     selfsim_impl: str
+    block1_impl: str
 
 
-def spec_from_config(cfg: StrotssConfig) -> StepSpec:
+def _block1_route(cfg: StrotssConfig, device) -> str:
+    """VGG block1's route for a run on ``device``: 'pallas' or 'xla'.
+
+    As in the JAX package (``strotss_tpu/programs.py:98-101``), the fused
+    route needs the bf16 policy. The port's own rule for ``'auto'``: the
+    fused kernel on a CUDA device with ``use_pallas`` set, ``F.conv2d`` on
+    the CPU and under ``use_pallas=False``. ``'pallas'`` forces the fused
+    route (on the CPU, its plain version) and ``'xla'`` forces
+    ``F.conv2d``.
+    """
+    b1 = cfg.block1_impl
+    if b1 not in ("auto", "xla", "pallas"):
+        raise ValueError("block1_impl must be 'auto', 'xla' or 'pallas', "
+                         f"got {b1!r}")
+    if cfg.compute_dtype != "bfloat16":
+        return "xla"
+    if b1 == "auto":
+        cuda = torch.device(device).type == "cuda"
+        return "pallas" if (cuda and cfg.use_pallas) else "xla"
+    return b1
+
+
+def spec_from_config(cfg: StrotssConfig, device="cpu") -> StepSpec:
+    """The step's static configuration for a run on ``device``."""
     impl = "auto" if cfg.use_pallas else "plain"
     return StepSpec(
         sample_size=cfg.sample_size,
@@ -58,14 +84,16 @@ def spec_from_config(cfg: StrotssConfig) -> StepSpec:
         use_sinkhorn=cfg.use_sinkhorn,
         remd_impl=impl,
         selfsim_impl=impl,
+        block1_impl=_block1_route(cfg, device),
     )
 
 
 def set_precision(spec: StepSpec) -> None:
     """Matmuls in full float32 (no TF32) everywhere. Convolutions in full
     float32 under ``compute_dtype='float32'`` (the JAX package's HIGHEST);
-    under the bf16 policy block1's float32 convolutions may use TF32, the
-    counterpart of the JAX package's DEFAULT precision there. These are
+    under the bf16 policy block1's float32 convolutions on the 'xla' route
+    may use TF32, the counterpart of the JAX package's DEFAULT precision
+    there (the fused route rounds its operands to bf16 itself). These are
     process-wide PyTorch switches."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = spec.compute_dtype == "bfloat16"

@@ -66,10 +66,6 @@ def _unported(cfg: StrotssConfig) -> None:
             raise NotImplementedError(
                 f"StrotssConfig.{field} is not ported to strotss_torch yet "
                 f"(ROADMAP.md Queue 1 item {item})")
-    if cfg.block1_impl not in ("auto", "xla"):
-        raise NotImplementedError(
-            "block1_impl='pallas' (kernel K3) is not ported to strotss_torch "
-            "yet (ROADMAP.md Queue 2, K3)")
 
 
 def stylize_single(
@@ -93,7 +89,7 @@ def stylize_single(
     """
     _unported(cfg)
     device = content.device
-    spec = spec_from_config(cfg)
+    spec = spec_from_config(cfg, device)  # ValueError on a bad block1_impl
     set_precision(spec)
     content = cap_max(content, cfg.max_size)
     style = cap_max(style, cfg.max_size)
@@ -101,7 +97,8 @@ def stylize_single(
                for k, p in vgg_params.items()},
               taps=spec.taps, vgg_type=spec.vgg_type,
               preprocess_mode=spec.preprocess_mode,
-              compute_dtype=spec.compute_dtype)
+              compute_dtype=spec.compute_dtype,
+              block1_impl=spec.block1_impl)
     gen = torch.Generator(device=device)
     gen.manual_seed(cfg.seed)
     n = spec.sample_size

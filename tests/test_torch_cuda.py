@@ -11,14 +11,18 @@ Tolerances: minima and the forward loss to rtol 1e-5 (float32 products
 summed in another order). The backward product, after the pull-back's
 projection, to 1e-4 of its largest entry in all but 1% of the rows: where
 A - B lies within rounding of 0, the kernel and the plain version may
-take opposite signs, which moves the two rows of that pair.
+take opposite signs, which moves the two rows of that pair. VGG block1:
+tap1 to 1e-5 of its largest value (exact bf16 products summed in another
+order), tap2 and dx to 1e-3 (where that order moves y1 or dy1 across a
+bf16 rounding boundary, one operand moves by 2^-8).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from strotss_torch.ops.kernels import remd, selfsim
+from strotss_torch.models.weights import random_params
+from strotss_torch.ops.kernels import block1, remd, selfsim
 
 
 @pytest.fixture
@@ -68,3 +72,34 @@ def test_selfsim_on_card(cuda_device, n, c):
         row_err = (project(u, h) - project(pu, h)).abs().amax(dim=1)
         bad = row_err > 1e-4 * project(pu, h).abs().max()
         assert int(bad.sum()) <= n // 100
+
+
+def _err(got, want) -> float:
+    return float((got.double() - want.double()).abs().max()
+                 / want.double().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(37, 53), (48, 64)])
+def test_block1_on_card(cuda_device, h, w):
+    torch.backends.cudnn.allow_tf32 = False
+    p = random_params("16", 0)
+    k1 = p["block1_conv1"]["kernel"].to(cuda_device)
+    k2 = p["block1_conv2"]["kernel"].to(cuda_device)
+    b1, b2 = 0.1 * _rand(1, (64,), cuda_device), 0.1 * _rand(2, (64,),
+                                                                cuda_device)
+    x = _rand(h, (h, w, 3), cuda_device)
+    g1, g2 = _rand(3, (h, w, 64), cuda_device), _rand(4, (h, w, 64),
+                                                       cuda_device)
+    before = (block1.block1_fwd.launches, block1.block1_bwd.launches)
+    t1, t2 = block1.block1_fwd(x, k1, b1, k2, b2)
+    dx = block1.block1_bwd(t1, t2, g1, g2, k1, k2)
+    assert (block1.block1_fwd.launches,
+            block1.block1_bwd.launches) == (before[0] + 1, before[1] + 1)
+    p1, p2 = block1.block1_plain(x, k1, b1, k2, b2)
+    assert _err(t1, p1) <= 1e-5
+    assert _err(t2, p2) <= 1e-3
+    assert _err(dx, block1.block1_bwd_plain(t1, t2, g1, g2, k1, k2)) <= 1e-3
+    again = block1.block1_fwd(x, k1, b1, k2, b2)
+    assert torch.equal(t1, again[0]) and torch.equal(t2, again[1])
+    assert torch.equal(dx, block1.block1_bwd(t1, t2, g1, g2, k1, k2))
