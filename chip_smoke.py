@@ -7,14 +7,19 @@ Run from the repository root on a machine with one NVIDIA H100::
 
 It builds the CUDA kernels from ``strotss_torch/csrc``, holds each kernel
 against its plain PyTorch version on the card (REMD minima, self-
-similarity forward and backward, VGG block1 forward and backward at the
-512 px content and style shapes and the 64 px content shape), runs a
-short slice of the 64 px scale with the kernels and with the plain
-versions, and then drives the default stylization (VGG16, 9 taps, 1024
-samples, 4 scales to 512 px) through ``strotss_torch.stylize``, counting
-each kernel's launches, and profiles 10 steps a scale. Each phase prints one JSON line; any
-failure exits non-zero. The last two lines are the kernels' measurements
-and ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
+similarity forward and backward at N = 1024 and 32769, VGG block1 forward
+and backward at the 512 px content and style shapes and the 64 px content
+shape, the Sinkhorn LSE pass at 32769 x 32769 and a ragged shape, and the
+streamed Sinkhorn loss and gradient), runs a short slice of the 64 px
+scale with the kernels and with the plain versions, and then drives the
+default stylization (VGG16, 9 taps, 1024 samples, 4 scales to 512 px)
+through ``strotss_torch.stylize``, counting each kernel's launches, and
+profiles 10 steps a scale. Last it drives the ``--sinkhorn`` path twice:
+below the memory gate (BASELINE config 5 at reduced depth, the plain
+materialized Sinkhorn) and above it (32769 samples, kernel K4). Each phase
+prints one JSON line; any failure exits non-zero. The last two lines are
+the kernels' measurements and ``{"ok": true, "device": {...}}``. It
+imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -28,12 +33,16 @@ import time
 import numpy as np
 
 # fp32 peak of the CUDA cores, dense bf16 peak of the tensor cores and
-# memory rate, by SKU (NVIDIA data sheets)
+# memory rate, by SKU (NVIDIA data sheets); special-function results
+# (expf, sqrtf) at 16 per SM and clock against 256 fp32 operations, so
+# 1/16 of the fp32 rate
 _PEAKS = {
     "SXM": {"fp32": 67e12, "bf16": 989e12, "bytes": 3.35e12},
     "NVL": {"fp32": 60e12, "bf16": 835e12, "bytes": 3.9e12},
     "PCIE": {"fp32": 51e12, "bf16": 756e12, "bytes": 2.0e12},
 }
+for _rates in _PEAKS.values():
+    _rates["sfu"] = _rates["fp32"] / 16
 
 _REPLACES = {
     "remd_mins": "strotss_tpu/ops/kernels/remd.py:142",
@@ -41,6 +50,7 @@ _REPLACES = {
     "selfsim_bwd": "strotss_tpu/ops/kernels/selfsim.py:198",
     "block1_fwd": "strotss_tpu/ops/kernels/block1.py:194",
     "block1_bwd": "strotss_tpu/ops/kernels/block1.py:238",
+    "sinkhorn_lse": "strotss_tpu/ops/kernels/sinkhorn.py:106",
 }
 _SOURCES = {
     "remd_mins": "strotss_torch/csrc/remd.cu",
@@ -48,6 +58,7 @@ _SOURCES = {
     "selfsim_bwd": "strotss_torch/csrc/selfsim.cu",
     "block1_fwd": "strotss_torch/csrc/block1.cu",
     "block1_bwd": "strotss_torch/csrc/block1.cu",
+    "sinkhorn_lse": "strotss_torch/csrc/sinkhorn.cu",
 }
 
 
@@ -93,8 +104,11 @@ def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
 
 def device_ms(fn, names, reps: int = 20):
     """Device time per call of ``fn`` in the kernels whose names start with
-    one of ``names``, from torch.profiler over ``reps`` calls; "not
-    measured" if the profiler sees no device time."""
+    one of ``names`` (each launched once a call), from torch.profiler over
+    ``reps`` calls; "not measured" if the profiler sees no device time.
+    Each kernel's time is divided by the launches the profiler recorded,
+    not by ``reps``: a profile of 2 calls of K2 at N = 32769 once showed
+    half the time CUDA events show for one call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -105,13 +119,14 @@ def device_ms(fn, names, reps: int = 20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = 0.0
+    ms = 0.0
     for ev in prof.key_averages():
         if (ev.device_type == torch.autograd.DeviceType.CUDA
-                and ev.key.startswith(tuple(names))):
+                and ev.key.startswith(tuple(names)) and ev.count):
             dev = getattr(ev, "self_device_time_total", None)
-            us += dev if dev is not None else ev.self_cuda_time_total
-    return us / 1e3 / reps if us > 0 else "not measured"
+            dev = dev if dev is not None else ev.self_cuda_time_total
+            ms += dev / 1e3 / ev.count
+    return ms if ms > 0 else "not measured"
 
 
 def bound_ms(flops: float, nbytes: float, rates, ops: str = "fp32") -> tuple:
@@ -298,14 +313,38 @@ def check_remd(n, m, c, distance, seed, rates):
     return out
 
 
-def check_selfsim(n, c, seed, rates):
-    """K2a and K2b against their plain versions at one shape."""
+def _signed_rows(seed, n, c, k=16):
+    """(n, c) rows of k entries +-1 at distinct random channels, else 0.
+    Their norms are 4, so the normalized entries are +-1/4 and every Gram
+    entry, column sum and D = 1 - x^ x^T is exact in float32 in any
+    summation order: kernel and plain version then see the same signs of
+    A - B."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    a = np.zeros((n, c), np.float32)
+    pos = np.stack([rng.choice(c, k, replace=False) for _ in range(n)])
+    a[np.arange(n)[:, None], pos] = rng.choice([-1.0, 1.0], (n, k))
+    return torch.tensor(a, device="cuda")
+
+
+def check_selfsim(n, c, seed, rates, reps=25, exact=False):
+    """K2a and K2b against their plain versions at one shape; ``reps``
+    timed calls each (fewer at large N, where one call takes ~1 s).
+
+    ``exact``: :func:`_signed_rows` inputs. Signs of A - B that the
+    kernel and the plain version resolve differently grow as N^2 (about
+    one at N = 1000, so some thousand at N = 32769), and each moves two
+    gradient rows by more than 1e-4 of max|g|; the row-by-row comparison
+    at large N needs inputs whose signs both compute alike."""
     import torch
 
     from strotss_torch.ops.kernels import selfsim
 
-    x = _inputs(seed, (n, c))
-    y = _inputs(seed + 1, (n, c))
+    if exact:
+        x, y = _signed_rows(seed, n, c), _signed_rows(seed + 1, n, c)
+    else:
+        x, y = _inputs(seed, (n, c)), _inputs(seed + 1, (n, c))
     xh, yh, _, _, cx, cy = selfsim._prep(x, y)
     loss, tx, ty = selfsim.selfsim_fwd(xh, yh, cx, cy)
     again = selfsim.selfsim_fwd(xh, yh, cx, cy)
@@ -346,18 +385,24 @@ def check_selfsim(n, c, seed, rates):
           f"selfsim N={n}: rows off by more than 1e-4 of max|g|: "
           f"{rows_off_u} of (G + G^T) x^, {rows_off_g} of the gradient")
 
-    fwd_ms = time_ms(lambda: selfsim.selfsim_fwd(xh, yh, cx, cy))
-    bwd_ms = time_ms(lambda: selfsim.selfsim_bwd(xh, yh, cx, cy, tx, ty))
+    warm, dev_reps = min(3, reps), min(20, reps)
+    fwd_ms = time_ms(lambda: selfsim.selfsim_fwd(xh, yh, cx, cy), reps, warm)
+    bwd_ms = time_ms(lambda: selfsim.selfsim_bwd(xh, yh, cx, cy, tx, ty),
+                     reps, warm)
     fwd_dev = device_ms(lambda: selfsim.selfsim_fwd(xh, yh, cx, cy),
-                        ("selfsim_fwd_kernel", "selfsim_fwd_reduce_kernel"))
+                        ("selfsim_fwd_kernel", "selfsim_fwd_reduce_kernel"),
+                        dev_reps)
     bwd_dev = device_ms(lambda: selfsim.selfsim_bwd(xh, yh, cx, cy, tx, ty),
-                        ("selfsim_gmat_kernel", "selfsim_apply_kernel"))
+                        ("selfsim_gmat_kernel", "selfsim_apply_kernel"),
+                        dev_reps)
     xr = x.clone().requires_grad_(True)
     yr = y.clone().requires_grad_(True)
     p_val = selfsim.self_similarity_plain(xr, yr)
-    plain_fwd_ms = time_ms(lambda: selfsim.self_similarity_plain(x, y))
+    plain_fwd_ms = time_ms(lambda: selfsim.self_similarity_plain(x, y), reps,
+                           warm)
     plain_bwd_ms = time_ms(lambda: torch.autograd.grad(
-        p_val, [xr, yr], retain_graph=True))
+        p_val, [xr, yr], retain_graph=True), reps, warm)
+    del p_val
     # x^ x^T and y^ y^T are symmetric: N(N+1)/2 dot products of length C
     # each, so N(N+1)C operations per Gram matrix
     gram_flops = 2 * float(n) * (n + 1) * c
@@ -476,6 +521,138 @@ def check_block1(h, w, seed, rates):
     return out
 
 
+def _sinkhorn_rows(seed, n, m, c, distance):
+    """x (n, c) and y (m, c) for a Sinkhorn check. Cosine: y_j = a_j
+    x_pi(j) + sqrt(1 - a_j^2) e_j with a_j uniform in [-1, 1], so matched
+    pairs span every distance from 0 to 2 and lam * d spans 0 to 20 at
+    lam = 10. C = 3 ('both' on YUV): positive uniform rows, as in the REMD
+    check. Otherwise independent normal rows (lam * d ~ 24 for 'both');
+    near-duplicate rows there would measure the float32 cancellation of
+    the L2 expansion, not the kernel."""
+    import torch
+
+    if c == 3 or distance != "cosine":
+        return (_inputs(seed, (n, c), positive=(c == 3)),
+                _inputs(seed + 1, (m, c), positive=(c == 3)))
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, c))
+    a = rng.uniform(-1.0, 1.0, (m, 1))
+    y = a * x[rng.integers(0, n, m)] + np.sqrt(1 - a * a) * (
+        rng.standard_normal((m, c)))
+    return (torch.tensor(x, dtype=torch.float32, device="cuda"),
+            torch.tensor(y, dtype=torch.float32, device="cuda"))
+
+
+def _lse64(x, y, logv, lam, distance, rows=2048):
+    """LSE_j(-lam d_ij + logv_j) in float64, ``rows`` rows at a time."""
+    import torch
+
+    return torch.cat([torch.logsumexp(
+        -lam * _dist64(x[i:i + rows], y, distance) + logv.double()[None, :],
+        dim=1) for i in range(0, x.shape[0], rows)])
+
+
+def check_lse(n, m, c, distance, seed, rates, reps):
+    """K4 against its plain version at one shape, lam = 10, logv spanning
+    tens of units; returns measurements."""
+    import torch
+
+    from strotss_torch.ops.kernels import sinkhorn
+
+    lam = 10.0
+    x, y = _sinkhorn_rows(seed, n, m, c, distance)
+    logv = 5.0 * _inputs(seed + 2, (m,))
+    out = sinkhorn.lse_pass(x, y, logv, lam, distance)
+    check(torch.equal(out, sinkhorn.lse_pass(x, y, logv, lam, distance)),
+          f"sinkhorn_lse {n}x{m}x{c}: two runs differ")
+    plain = sinkhorn.lse_pass_plain(x, y, logv, lam, distance)
+    ref = _lse64(x, y, logv, lam, distance)
+    # 1e-5 of max|out| against the plain version (float32 sums in another
+    # order), or, where the distance is ill-conditioned in float32 ('both'
+    # at C = 3), no further from float64 than twice the plain version
+    err, err64, plain64 = (_grad_err(a, b) for a, b in
+                           ((out, plain), (out, ref), (plain, ref)))
+    check(err <= 1e-5 or err64 <= max(1e-5, 2.0 * plain64),
+          f"sinkhorn_lse {n}x{m}x{c} {distance}: err {err} of max|out| "
+          f"(vs float64 {err64}, plain float32 vs float64 {plain64})")
+    del ref
+    ms = time_ms(lambda: sinkhorn.lse_pass(x, y, logv, lam, distance), reps,
+                 1)
+    dev_ms = device_ms(lambda: sinkhorn.lse_pass(x, y, logv, lam, distance),
+                       ("sinkhorn_lse_kernel",), min(reps, 20))
+    plain_ms = time_ms(lambda: sinkhorn.lse_pass_plain(x, y, logv, lam,
+                                                       distance), reps, 1)
+    torch.cuda.empty_cache()
+    # one dot product of length C per pair serves both distances of
+    # 'both'; per pair about 8 more operations (distance, z, max, sum) and
+    # one expf, plus one sqrtf for the L2 part
+    flops = 2.0 * n * m * c + 8.0 * n * m
+    sfu = float(n) * m * (1 if distance == "cosine" else 2)
+    nbytes = 4.0 * (n * c + m * c + m + n)
+    b_ms, b_by = bound_ms(flops, nbytes, rates)
+    kind = "fp32"
+    if sfu / rates["sfu"] * 1e3 > b_ms:
+        b_ms, b_by, kind = sfu / rates["sfu"] * 1e3, "operations", "sfu"
+    res = {"shape": [n, m, c], "distance": distance,
+           "max_abs_err": float((out - plain).abs().max()),
+           "err_of_max": err, "err_of_max_vs_f64": err64,
+           "plain_err_of_max_vs_f64": plain64, "ms": ms, "device_ms": dev_ms,
+           "plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms,
+           "bound_by": b_by, "bound_ops": kind}
+    emit({"phase": "kernel", "name": "sinkhorn_lse", **res})
+    return res
+
+
+def check_streamed(n, c, distance, seed):
+    """The streamed Sinkhorn loss (K4, 60 launches) and its Danskin
+    gradient against the plain materialized path at N = M = n, lam = 10,
+    30 iterations: the loss to rtol 1e-4 (the JAX package's tolerance for
+    its compiled streamed kernel against XLA), the gradient to 1e-4 of
+    max|g| against the gradient of the plain read-out with its plan held
+    fixed. The cosine with the plain path's unrolled gradient is reported,
+    not checked (~0.9 is expected: the estimators differ)."""
+    import torch
+
+    from strotss_torch.ops import losses
+    from strotss_torch.ops.kernels import sinkhorn
+
+    lam, iters = 10.0, 30
+    x, y = _sinkhorn_rows(seed, n, n, c, distance)
+    yk = y.clone().requires_grad_(True)
+    before = sinkhorn.lse_pass.launches
+    val = losses.sinkhorn(x, yk, distance, lam, iters, impl="kernel")
+    (gk,) = torch.autograd.grad(val, [yk])
+    launches = sinkhorn.lse_pass.launches - before
+    yp = y.clone().requires_grad_(True)
+    plain = losses.sinkhorn(x, yp, distance, lam, iters, impl="plain")
+    (gu,) = torch.autograd.grad(plain, [yp])
+    # the plain path's potentials, then its read-out with the plan frozen
+    d = losses.dist_metrics[distance](x, y)
+    log_k = -lam * d
+    log_u, log_v = torch.zeros_like(d[:, 0]), torch.zeros_like(d[0])
+    log_p = torch.full_like(log_u, -float(np.log(n)))
+    for _ in range(iters):
+        log_u = log_p - torch.logsumexp(log_k + log_v[None, :], dim=1)
+        log_v = log_p - torch.logsumexp(log_k + log_u[:, None], dim=0)
+    yf = y.clone().requires_grad_(True)
+    df = losses.dist_metrics[distance](x, yf)
+    t = torch.exp(log_u[:, None] - lam * d + log_v[None, :])
+    (gf,) = torch.autograd.grad(torch.sum(t * df), [yf])
+    val, plain = float(val.detach()), float(plain.detach())
+    rel = abs(val - plain) / abs(plain)
+    gerr = _grad_err(gk, gf)
+    cos = float(torch.nn.functional.cosine_similarity(
+        gk.double().flatten(), gu.double().flatten(), dim=0))
+    res = {"n": n, "c": c, "distance": distance, "launches": launches,
+           "loss": val, "plain_loss": plain, "rel_err": rel,
+           "grad_err_vs_frozen_plan": gerr, "cos_vs_unrolled_grad": cos}
+    emit({"phase": "kernel", "name": "sinkhorn_streamed", **res})
+    check(launches == 2 * iters, f"sinkhorn_streamed: {launches} launches")
+    check(rel <= 1e-4, f"sinkhorn_streamed {distance}: loss rel err {rel}")
+    check(gerr <= 1e-4, f"sinkhorn_streamed {distance}: grad err {gerr}")
+    return res
+
+
 def phase_kernels(rates):
     import torch
 
@@ -490,8 +667,19 @@ def phase_kernels(rates):
     b1_main = check_block1(384, 512, 11, rates)
     check_block1(512, 398, 13, rates)
     check_block1(48, 64, 15, rates)
+    # the --sinkhorn path above the memory gate: N = M = 32769 for the
+    # feature term (C = 2179) and the YUV term (C = 3); a ragged shape
+    lse_main = check_lse(32769, 32769, 2179, "cosine", 17, rates, reps=3)
+    lse_yuv = check_lse(32769, 32769, 3, "both", 19, rates, reps=5)
+    check_lse(4099, 3001, 2179, "both", 21, rates, reps=10)
+    check_streamed(4096, 2179, "cosine", 23)
+    check_streamed(4096, 3, "both", 25)
+    # self-similarity at the path's N = 32769, its first run above 1024
+    ss_big = check_selfsim(32769, 2179, 27, rates, reps=2, exact=True)
+    torch.cuda.empty_cache()
     return {"remd_mins": (remd_main, remd_yuv), "selfsim": ss_main,
-            "block1": b1_main}
+            "selfsim_32769": ss_big, "block1": b1_main,
+            "sinkhorn_lse": (lse_main, lse_yuv)}
 
 
 def _smooth_image(h: int, w: int, seed: int) -> np.ndarray:
@@ -627,47 +815,72 @@ def phase_slice(vgg_params):
               f"slice: {k} {max(err[k])} > {limit} at the same state")
 
 
-def phase_main():
-    """The default stylization through strotss_torch.stylize, weights
-    resolved as a user's run resolves them (on a machine without
-    pretrained weights: the seeded random init, with a warning)."""
+def _counted():
+    """Each kernel's wrapper, by the kernel's name in the kernels line."""
+    from strotss_torch.ops.kernels import block1, remd, selfsim, sinkhorn
+
+    return {"remd_mins": remd.mins, "selfsim_fwd": selfsim.selfsim_fwd,
+            "selfsim_bwd": selfsim.selfsim_bwd,
+            "block1_fwd": block1.block1_fwd,
+            "block1_bwd": block1.block1_bwd,
+            "sinkhorn_lse": sinkhorn.lse_pass}
+
+
+def _run_counted(content, style, cfg):
+    """One stylization through strotss_torch.stylize, weights resolved as
+    a user's run resolves them (on a machine without pretrained weights:
+    the seeded random init, with a warning), with every launch count set
+    to 0 just before and read just after. Returns (image, info, launches,
+    summary)."""
     import torch
 
     import strotss_torch
-    from strotss_torch.ops.kernels import block1, remd, selfsim
 
-    cfg = strotss_torch.StrotssConfig()
-    content = _smooth_image(480, 640, 21)
-    style = _smooth_image(720, 560, 22)
-    counted = {"remd_mins": remd.mins, "selfsim_fwd": selfsim.selfsim_fwd,
-               "selfsim_bwd": selfsim.selfsim_bwd,
-               "block1_fwd": block1.block1_fwd,
-               "block1_bwd": block1.block1_bwd}
+    counted = _counted()
     for fn in counted.values():
         fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     img, info = strotss_torch.stylize(content, style, cfg)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counted.items()}
+    launches = {k: fn.launches for k, fn in counted.items()}
+    summary = {"content": list(content.shape), "style": list(style.shape),
+               "output": list(img.shape), "seconds": seconds,
+               "stylize_seconds": info["seconds"],
+               "scales": [{"scale": s["scale"], "seconds": s["seconds"],
+                           "first_loss": float(s["curve"][0, 0]),
+                           "last_loss": float(s["curve"][-1, 0])}
+                          for s in info["scales"]],
+               "launches": launches,
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    return img, info, launches, summary
+
+
+def _check_curves(name, info, falls):
+    for s in info["scales"]:
+        check(bool(np.all(np.isfinite(s["curve"]))),
+              f"{name}: non-finite loss at scale {s['scale']}")
+        if falls:
+            check(s["curve"][-1, 0] < s["curve"][0, 0],
+                  f"{name}: scale {s['scale']} loss did not fall")
+
+
+def phase_main():
+    """The default stylization through strotss_torch.stylize."""
+    import torch
+
+    import strotss_torch
+
+    cfg = strotss_torch.StrotssConfig()
+    img, info, launches, summary = _run_counted(
+        _smooth_image(480, 640, 21), _smooth_image(720, 560, 22), cfg)
     steps = cfg.levels * cfg.max_iter
-    scales = [{"scale": s["scale"], "seconds": s["seconds"],
-               "first_loss": float(s["curve"][0, 0]),
-               "last_loss": float(s["curve"][-1, 0])}
-              for s in info["scales"]]
     emit({"phase": "main", "config": "StrotssConfig() defaults: VGG16, 9 "
           "taps (2179 channels), 1024 samples, 4 scales to 512 px, "
           "bfloat16 policy", "max_iter": cfg.max_iter, "steps": steps,
-          "content": list(content.shape), "style": list(style.shape),
-          "output": list(img.shape), "seconds": seconds,
-          "stylize_seconds": info["seconds"], "scales": scales,
-          "launches": launches,
-          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
-    for s in info["scales"]:
-        check(bool(np.all(np.isfinite(s["curve"]))),
-              f"main: non-finite loss at scale {s['scale']}")
-        check(s["curve"][-1, 0] < s["curve"][0, 0],
-              f"main: scale {s['scale']} loss did not fall")
+          **summary})
+    _check_curves("main", info, falls=True)
     check(img.dtype == torch.uint8 and tuple(img.shape) == (384, 512, 3),
           f"main: output {img.dtype} {tuple(img.shape)}, want uint8 "
           "(384, 512, 3)")
@@ -675,8 +888,89 @@ def phase_main():
     # style at each scale
     want = {"remd_mins": 2 * steps, "selfsim_fwd": steps,
             "selfsim_bwd": steps, "block1_fwd": steps + 2 * cfg.levels,
-            "block1_bwd": steps}
+            "block1_bwd": steps, "sinkhorn_lse": 0}
     check(launches == want, f"main: launches {launches}, want {want}")
+    return launches
+
+
+def phase_sinkhorn(cosine_pass_ms):
+    """The --sinkhorn path through strotss_torch.stylize, on both sides of
+    the memory gate N * M = 2**30.
+
+    (a) BASELINE config 5 (1024 px, Sinkhorn, more samples) at reduced
+    depth: 5 scales to 1024 px, 2048 samples, 10 steps a scale. Plain
+    materialized Sinkhorn with the unrolled gradient; K4 is not launched.
+    (b) 32769 samples, just above the gate: one step a scale at full
+    width (VGG16, 9 taps, 2179 channels, 30 iterations), every
+    half-update through K4 (2 terms x 30 iterations x 2 passes a step),
+    the Danskin gradient. 4 scales, or 2 if one cosine pass takes more
+    than 0.4 s. The first step's style loss is held to the plain
+    materialized loss on the same features at rtol 1e-4.
+    """
+    import torch
+
+    import strotss_torch
+    from strotss_torch import programs
+    from strotss_torch.ops.image import resize_max_hw
+    from strotss_torch.ops.losses import style_loss
+
+    cfg_a = strotss_torch.StrotssConfig(use_sinkhorn=True, levels=5,
+                                        max_size=1024, sample_size=2048,
+                                        max_iter=10)
+    img, info, launches, summary = _run_counted(
+        _smooth_image(768, 1024, 41), _smooth_image(1024, 800, 42), cfg_a)
+    emit({"phase": "sinkhorn", "run": "a", "config": "BASELINE config 5 at "
+          "reduced depth: use_sinkhorn, 5 scales to 1024 px, 2048 samples, "
+          "10 steps a scale, plain materialized Sinkhorn", **summary})
+    _check_curves("sinkhorn (a)", info, falls=True)
+    check(launches["sinkhorn_lse"] == 0 and launches["remd_mins"] == 0,
+          f"sinkhorn (a): launches {launches}, want no sinkhorn_lse and no "
+          "remd_mins")
+    check(img.dtype == torch.uint8 and max(img.shape[:2]) == 1024,
+          f"sinkhorn (a): output {img.dtype} {tuple(img.shape)}")
+
+    cfg_b = strotss_torch.StrotssConfig(
+        use_sinkhorn=True, sample_size=32769, max_iter=1,
+        levels=4 if cosine_pass_ms <= 400 else 2)
+    content = _smooth_image(480, 640, 43)
+    style = _smooth_image(720, 560, 44)
+    first = {}
+
+    def recording_style_loss(target, prediction, alpha, **kw):
+        out = style_loss(target, prediction, alpha, **kw)
+        if not first:
+            first.update(args=(target.detach().clone(),
+                               prediction.detach().clone(), alpha),
+                         kw=kw, loss=float(out.detach()))
+        return out
+
+    programs.style_loss = recording_style_loss
+    try:
+        img, info, launches, summary = _run_counted(content, style, cfg_b)
+    finally:
+        programs.style_loss = style_loss
+    steps = cfg_b.levels * cfg_b.max_iter
+    with torch.no_grad():
+        plain = float(style_loss(*first["args"], **dict(
+            first["kw"], remd_impl="plain")))
+    rel = abs(first["loss"] - plain) / abs(plain)
+    emit({"phase": "sinkhorn", "run": "b", "config": "use_sinkhorn, 32769 "
+          f"samples, {cfg_b.levels} scales x 1 step, VGG16 9 taps, 30 "
+          "iterations; streamed through K4", "levels": cfg_b.levels,
+          "cosine_pass_ms": cosine_pass_ms,
+          "first_style_loss": first["loss"], "plain_style_loss": plain,
+          "style_loss_rel_err": rel, **summary})
+    _check_curves("sinkhorn (b)", info, falls=False)
+    want = {"remd_mins": 0, "selfsim_fwd": steps, "selfsim_bwd": steps,
+            "block1_fwd": steps + 2 * cfg_b.levels, "block1_bwd": steps,
+            "sinkhorn_lse": steps * 2 * cfg_b.sinkhorn_iters * 2}
+    check(launches == want, f"sinkhorn (b): launches {launches}, want {want}")
+    hw = resize_max_hw(*content.shape[1:3], cfg_b.scale_sizes()[-1])
+    check(img.dtype == torch.uint8 and tuple(img.shape) == (*hw, 3),
+          f"sinkhorn (b): output {img.dtype} {tuple(img.shape)}, want "
+          f"uint8 {(*hw, 3)}")
+    check(rel <= 1e-4, f"sinkhorn (b): first style loss {first['loss']} "
+          f"against plain {plain}, rel err {rel}")
     return launches
 
 
@@ -763,22 +1057,27 @@ def phase_profile(vgg_params):
                                  if k != "rows"}})
 
 
+_TIMES = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")
+
+
+def _with_yuv(main, yuv):
+    """The feature term's row, with the YUV term's times beside it."""
+    entry = dict(main, max_abs_err=max(main["max_abs_err"],
+                                       yuv["max_abs_err"]))
+    entry["yuv_both_c3"] = {k: yuv[k] for k in _TIMES}
+    return entry
+
+
 def kernels_line(meas, launches):
-    remd_main, remd_yuv = meas["remd_mins"]
-    rows = []
-    entry = {k: remd_main[k] for k in ("max_abs_err", "ms", "device_ms",
-                                       "plain_ms", "bound_ms", "bound_by",
-                                       "library_ms")}
-    entry["max_abs_err"] = max(remd_main["max_abs_err"],
-                               remd_yuv["max_abs_err"])
-    entry["yuv_both_c3"] = {k: remd_yuv[k] for k in
-                            ("ms", "device_ms", "plain_ms", "bound_ms",
-                             "bound_by")}
-    rows.append(("remd_mins", entry))
-    rows.append(("selfsim_fwd", meas["selfsim"]["fwd"]))
-    rows.append(("selfsim_bwd", meas["selfsim"]["bwd"]))
+    ss_big = meas["selfsim_32769"]
+    rows = [("remd_mins", _with_yuv(*meas["remd_mins"]))]
+    for name in ("fwd", "bwd"):
+        rows.append((f"selfsim_{name}", dict(
+            meas["selfsim"][name],
+            n_32769={k: ss_big[name][k] for k in _TIMES})))
     rows.append(("block1_fwd", meas["block1"]["fwd"]))
     rows.append(("block1_bwd", meas["block1"]["bwd"]))
+    rows.append(("sinkhorn_lse", _with_yuv(*meas["sinkhorn_lse"])))
     out = []
     for name, m in rows:
         out.append({
@@ -788,7 +1087,8 @@ def kernels_line(meas, launches):
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
             "device_ms": m["device_ms"],
-            **{k: v for k, v in m.items() if k == "yuv_both_c3"},
+            **{k: v for k, v in m.items() if k in ("yuv_both_c3",
+                                                    "n_32769")},
         })
     return {"kernels": out}
 
@@ -821,6 +1121,9 @@ def main() -> int:
         phase_slice(vgg_params)
         launches = phase_main()
         phase_profile(vgg_params)
+        cosine_pass_ms = meas["sinkhorn_lse"][0]["ms"]
+        launches["sinkhorn_lse"] = phase_sinkhorn(cosine_pass_ms)[
+            "sinkhorn_lse"]
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

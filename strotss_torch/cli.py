@@ -4,8 +4,10 @@ Same flags, defaults and log messages as ``strotss_tpu/cli.py``. The run
 goes to ``cuda:<--gpu_id>`` (alias ``--device_id``); ``--cpu`` asks for the
 CPU instead, and without a card and without ``--cpu`` the run stops with
 an error rather than falling back. Flags of paths not ported yet (masks,
-``--init``, blended styles, ``--sinkhorn``, ``--checkpoint_dir``,
-``--start_level``, ``--remat``, ``--profile_dir``) raise a clear error.
+``--init``, blended styles, ``--checkpoint_dir``, ``--start_level``,
+``--remat``, ``--profile_dir``) raise a clear error. ``--sinkhorn``
+takes the materialized Sinkhorn path below N * M = 2**30 samples and the
+streamed one (kernel K4) above, as the JAX package does.
 ``--no_pallas`` takes the plain PyTorch versions of the loss kernels and
 runs VGG block1 as ``F.conv2d`` (cuDNN on the card) instead of kernel K3;
 ``--no_precompile`` is accepted and changes nothing (nothing is compiled
@@ -28,7 +30,7 @@ logger = make_logger("STROTSS")
 _UNPORTED = {
     "content_mask": 7, "style_mask": 7, "style2": 8, "style_blend": 8,
     "styles": 8, "style_weights": 8, "init": 9, "checkpoint_dir": 9,
-    "start_level": 9, "sinkhorn": 12, "remat": 14, "profile_dir": 14,
+    "start_level": 9, "remat": 14, "profile_dir": 14,
 }
 
 
@@ -63,7 +65,8 @@ def build_parser() -> argparse.ArgumentParser:
                              "kernels")
     parser.add_argument("--no_precompile", action="store_true",
                         help="accepted for the JAX CLI's sake; no effect")
-    parser.add_argument("--sinkhorn", action="store_true")
+    parser.add_argument("--sinkhorn", action="store_true",
+                        help="full entropic OT instead of relaxed EMD")
     parser.add_argument("--profile_dir", type=str, default=None)
     parser.add_argument("--save_every", type=int, default=0)
     parser.add_argument("--checkpoint_dir", type=str, default=None)
@@ -123,6 +126,7 @@ def main(argv=None) -> int:
         seed=args.seed,
         log_every=args.log_every,
         use_pallas=not args.no_pallas,
+        use_sinkhorn=args.sinkhorn,
         precompile=not args.no_precompile,
         save_every=args.save_every,
         taps=tuple(args.taps.split(",")) if args.taps else None,

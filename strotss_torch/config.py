@@ -3,7 +3,7 @@
 The port's own copy of ``strotss_tpu/config.py``'s ``StrotssConfig``, with
 the same fields and defaults (a test holds them equal). Importing the JAX
 package's module would import JAX, so the port keeps this copy. Fields of
-paths not ported yet (masks, warm start, checkpoints, Sinkhorn, sharding)
+paths not ported yet (masks, warm start, checkpoints, sharding)
 exist so that configurations carry over; the port
 raises where one of them asks for such a path.
 """
@@ -67,7 +67,7 @@ class StrotssConfig:
     save_every: int = 0
     #: checkpoint directory (not ported yet)
     checkpoint_dir: Optional[str] = None
-    #: Sinkhorn transport instead of REMD (not ported yet)
+    #: Sinkhorn transport instead of REMD
     use_sinkhorn: bool = False
     sinkhorn_lambda: float = 10.0
     sinkhorn_iters: int = 30

@@ -28,10 +28,6 @@
 // blocks comes from the 50 MB L2, which holds both inputs.
 #include "tile.cuh"
 
-#define DIST_COS 0
-#define DIST_L2 1
-#define DIST_BOTH 2
-
 __global__ void __launch_bounds__(NTHREADS)
 remd_tile_kernel(const float* __restrict__ x, const float* __restrict__ y,
                  int n, int m, int c, int dist, float* __restrict__ rowpart_v,
@@ -50,31 +46,9 @@ remd_tile_kernel(const float* __restrict__ x, const float* __restrict__ y,
   const int col0 = blockIdx.x * TILE;
   const int row0 = blockIdx.y * TILE;
 
-  float acc[4][4];
+  float acc[4][4], d[4][4];
   tile_dot<true>(x, row0, n, y, col0, m, c, as, bs, acc, xsq, ysq);
-
-  const float inv_c = 1.0f / (float)c;
-  float d[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const float xs = xsq[ty + 16 * a];
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const float ys = ysq[tx + 16 * b];
-      const float dot = acc[a][b];
-      float v = 0.f;
-      if (dist != DIST_L2) {
-        const float rx = 1.0f / sqrtf(fmaxf(xs, 1e-12f));
-        const float ry = 1.0f / sqrtf(fmaxf(ys, 1e-12f));
-        v = 1.0f - (dot * rx) * ry;
-      }
-      if (dist != DIST_COS) {
-        const float msq = xs + ys - 2.0f * dot;
-        v += sqrtf(fmaxf(msq, 1e-6f) * inv_c);
-      }
-      d[a][b] = v;
-    }
-  }
+  tile_dist(acc, xsq, ysq, c, dist, d);
 
   // row minima over this tile's columns: 4 columns per thread, then the 16
   // threads of one half-warp that share the rows

@@ -114,7 +114,8 @@ selfsim_fwd_kernel(const float* __restrict__ xh, const float* __restrict__ yh,
 }
 
 // Threads g < n fold t_x[g] and t_y[g] over the row tiles in order; thread
-// g == n adds the per-block loss partials in order and divides by n.
+// g == n adds the per-block loss partials in order, in double: there are
+// (n/64)^2 of them (263,169 at n = 32769), too many for a float sum.
 __global__ void selfsim_fwd_reduce_kernel(
     const float* __restrict__ total_part, const float* __restrict__ tx_part,
     const float* __restrict__ ty_part, int n, int n_tiles, int n_blocks,
@@ -129,9 +130,9 @@ __global__ void selfsim_fwd_reduce_kernel(
     tx[g] = a;
     ty[g] = b;
   } else if (g == n) {
-    float s = 0.f;
+    double s = 0.0;
     for (int i = 0; i < n_blocks; ++i) s += total_part[i];
-    loss[0] = s / (float)n;
+    loss[0] = (float)(s / n);
   }
 }
 

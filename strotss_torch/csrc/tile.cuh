@@ -1,4 +1,5 @@
-// Shared pieces of the hand-written fp32 kernels (remd.cu, selfsim.cu).
+// Shared pieces of the hand-written fp32 kernels (remd.cu, selfsim.cu,
+// sinkhorn.cu).
 //
 // Every kernel here works on 64 x 64 output tiles with 256 threads. Thread
 // (ty, tx) of the 16 x 16 layout owns rows ty + 16*a and columns tx + 16*b,
@@ -13,6 +14,10 @@
 #define KC 32
 #define NTHREADS 256
 #define BIG_F 3.4e38f
+
+#define DIST_COS 0
+#define DIST_L2 1
+#define DIST_BOTH 2
 
 // A (value, index) pair is better than another if it is smaller, or equal
 // with a smaller index: a reduction in any order then keeps the first
@@ -90,5 +95,43 @@ __device__ __forceinline__ void tile_dot(
       ysq[tid - TILE] = sq;
     }
     __syncthreads();
+  }
+}
+
+// d[a][b] = the `dist` distance of X row ty + 16a and Y row tx + 16b of the
+// tile, from tile_dot<true>'s products and squared norms, with the floors of
+// strotss_torch/ops/kernels/common.py: cosine 1 - x^.y^ (squared norms
+// floored at 1e-12), L2 sqrt(max(|x|^2 + |y|^2 - 2 x.y, 1e-6) / c), or
+// their sum ('both').
+__device__ __forceinline__ void tile_dist(const float acc[4][4],
+                                          const float* xsq, const float* ysq,
+                                          int c, int dist, float d[4][4]) {
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  const float inv_c = 1.0f / (float)c;
+  float xs[4], ys[4], rx[4], ry[4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    xs[a] = xsq[ty + 16 * a];
+    rx[a] = 1.0f / sqrtf(fmaxf(xs[a], 1e-12f));
+  }
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    ys[b] = ysq[tx + 16 * b];
+    ry[b] = 1.0f / sqrtf(fmaxf(ys[b], 1e-12f));
+  }
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const float dot = acc[a][b];
+      float v = 0.f;
+      if (dist != DIST_L2) v = 1.0f - (dot * rx[a]) * ry[b];
+      if (dist != DIST_COS) {
+        const float msq = xs[a] + ys[b] - 2.0f * dot;
+        v += sqrtf(fmaxf(msq, 1e-6f) * inv_c);
+      }
+      d[a][b] = v;
+    }
   }
 }

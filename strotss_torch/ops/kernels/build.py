@@ -22,7 +22,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "strotss_torch")
-SOURCES = ("remd", "selfsim", "block1")
+SOURCES = ("remd", "selfsim", "block1", "sinkhorn")
 
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -34,6 +34,7 @@ NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 #: C signatures of the exported functions: name -> (library, argtypes).
 _SIGNATURES = {
     "remd_mins": ("remd", [_P, _P, _I, _I, _I, _I] + [_P] * 8 + [_P]),
@@ -41,6 +42,7 @@ _SIGNATURES = {
     "selfsim_bwd": ("selfsim", [_P] * 6 + [_I, _I] + [_P] * 4 + [_P]),
     "block1_fwd": ("block1", [_P] * 5 + [_I, _I] + [_P] * 2 + [_P]),
     "block1_bwd": ("block1", [_P] * 6 + [_I, _I] + [_P] * 2 + [_P]),
+    "sinkhorn_lse": ("sinkhorn", [_P] * 3 + [_I] * 4 + [_F] + [_P, _P]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

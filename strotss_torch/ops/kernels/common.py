@@ -13,6 +13,8 @@ import torch
 _L2NORM_EPS = 1e-12  # floor on squared row norms before the rsqrt
 _L2DIST_EPS = 1e-6  # floor on squared L2 distances
 _COLSUM_EPS = 1e-12  # floor on self-similarity column sums
+#: distance -> its code in csrc/tile.cuh (DIST_COS, DIST_L2, DIST_BOTH)
+_DIST_CODE = {"cosine": 0, "l2": 1, "both": 2}
 
 
 def round_up(v: int, m: int) -> int:

@@ -21,6 +21,7 @@ import torch
 
 from strotss_torch.ops.kernels import build
 from strotss_torch.ops.kernels.common import (
+    _DIST_CODE,
     _L2DIST_EPS,
     check_cuda_f32,
     normalize_rows,
@@ -28,7 +29,6 @@ from strotss_torch.ops.kernels.common import (
 )
 from strotss_torch.ops.losses import dist_metrics
 
-_DIST_CODE = {"cosine": 0, "l2": 1, "both": 2}
 _TILE = 64  # csrc/tile.cuh TILE
 
 

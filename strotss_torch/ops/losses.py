@@ -1,7 +1,8 @@
-"""STROTSS losses: distances, relaxed EMD, self-similarity, moments.
+"""STROTSS losses: distances, relaxed EMD, self-similarity, moments,
+Sinkhorn.
 
-Counterpart of ``strotss_tpu/ops/losses.py`` (lines 35-206 and 288-343),
-all in float32:
+Counterpart of ``strotss_tpu/ops/losses.py`` (lines 35-343), all in
+float32:
 
 - ``cosine_distance``: rows l2-normalized with floor 1e-12, ``1 - x^ y^T``.
 - ``l2_distance``: squared-expansion pairwise distance, floored at 1e-6,
@@ -10,18 +11,21 @@ all in float32:
   1e-12), MAE between them times the row count.
 - ``moment_matching``: MAE of means + MAE of biased covariances.
 - ``relaxed_emd``: ``max(mean(row-min C), mean(col-min C))``.
+- ``sinkhorn``: log-domain entropic OT ``<T, C>``.
 
 ``impl`` selects between the hand-written CUDA kernel and its plain
 PyTorch version (``'auto'``: the kernel on a CUDA tensor, the plain version
-on a CPU tensor; ``'plain'``; ``'kernel'``, which raises on the CPU). The
-Sinkhorn transport of the JAX package is not ported yet.
+on a CPU tensor; ``'plain'``; ``'kernel'``, which raises on the CPU).
+``sinkhorn``'s ``impl`` is a choice of algorithm instead, see there.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from strotss_torch.ops.image import rgb_to_yuv
 from strotss_torch.ops.kernels.common import _L2DIST_EPS, _L2NORM_EPS
@@ -121,31 +125,98 @@ def relaxed_emd(x: torch.Tensor, y: torch.Tensor, distance: str = "cosine",
     return torch.maximum(torch.mean(rowmin), torch.mean(colmin))
 
 
+#: The JAX package's memory gate (``strotss_tpu/ops/losses.py:256-260``):
+#: 'auto' streams once N * M > 2**30. Crossing it switches the gradient
+#: estimator from the unrolled one to the converged-plan (Danskin) one, so
+#: the port keeps the same gate, and the same result for the same config,
+#: although an 80 GB card would fit the materialized path further up.
+SINKHORN_STREAM_ABOVE = 2 ** 30
+
+
+def sinkhorn_route(n: int, m: int, impl: str = "auto") -> str:
+    """'plain' or 'kernel' for an N x M Sinkhorn under ``impl``."""
+    if impl == "auto":
+        return "kernel" if n * m > SINKHORN_STREAM_ABOVE else "plain"
+    if impl in ("plain", "kernel"):
+        return impl
+    raise ValueError(f"impl must be 'auto', 'plain' or 'kernel', got {impl!r}")
+
+
+def _sinkhorn_plain(x, y, distance: str, lam: float, n_iter: int):
+    m = dist_metrics[distance](x, y)
+    n, mm = m.shape
+    log_k = -lam * m
+    log_p = torch.full((n,), -math.log(n), dtype=m.dtype, device=m.device)
+    log_q = torch.full((mm,), -math.log(mm), dtype=m.dtype, device=m.device)
+
+    def body(log_u, log_v):
+        log_u = log_p - torch.logsumexp(log_k + log_v[None, :], dim=1)
+        log_v = log_q - torch.logsumexp(log_k + log_u[:, None], dim=0)
+        return log_u, log_v
+
+    log_u, log_v = m.new_zeros(n), m.new_zeros(mm)
+    for _ in range(n_iter):
+        # recompute each iteration in the backward pass (the JAX package's
+        # jax.checkpoint): otherwise autograd keeps two N x M logsumexp
+        # residuals per iteration
+        log_u, log_v = checkpoint(body, log_u, log_v, use_reentrant=False)
+    log_t = log_u[:, None] + log_k + log_v[None, :]
+    return torch.sum(torch.exp(log_t) * m)
+
+
+def sinkhorn(x: torch.Tensor, y: torch.Tensor, distance: str = "cosine",
+             lam: float = 10.0, n_iter: int = 30,
+             impl: str = "auto") -> torch.Tensor:
+    """Entropic OT cost ``<T, C>`` by ``n_iter`` log-domain Sinkhorn
+    iterations (uniform marginals, kernel ``exp(-lam C)``).
+
+    ``impl='plain'`` materializes the N x M log-kernel and differentiates
+    through the unrolled iterations. ``'kernel'`` streams every
+    half-update (:mod:`strotss_torch.ops.kernels.sinkhorn`: kernel K4 on
+    CUDA tensors, its plain version on CPU tensors) and returns the
+    converged-plan (Danskin) gradient. ``'auto'`` takes ``'kernel'`` only
+    above the memory gate :data:`SINKHORN_STREAM_ABOVE`.
+    """
+    x, y = reshape_2d(_f32(x)), reshape_2d(_f32(y))
+    if sinkhorn_route(x.shape[0], y.shape[0], impl) == "kernel":
+        from strotss_torch.ops.kernels.sinkhorn import sinkhorn_streamed
+
+        return sinkhorn_streamed(x, y, distance, lam, n_iter)
+    return _sinkhorn_plain(x, y, distance, lam, n_iter)
+
+
 def style_loss(
     target: torch.Tensor,
     prediction: torch.Tensor,
     alpha,
     use_sinkhorn: bool = False,
+    sinkhorn_lambda: float = 10.0,
+    sinkhorn_iters: int = 30,
     remd_impl: str = "auto",
     target_moments: Optional[tuple] = None,
 ) -> torch.Tensor:
-    """``moments + REMD(cosine) + (1/max(alpha,1)) * REMD(YUV, 'both')``.
+    """``moments + T(cosine) + (1/max(alpha,1)) * T(YUV, 'both')``, with
+    the transport term T REMD, or Sinkhorn under ``use_sinkhorn``.
 
+    ``remd_impl`` also picks the Sinkhorn implementation ('auto': the
+    memory gate; 'plain': the materialized path at every size), as the
+    JAX package passes its ``remd_impl`` on.
     ``target_moments``: optional precomputed :func:`moment_stats` of
     ``target`` (the solver hoists them out of the step loop).
     """
-    if use_sinkhorn:
-        raise NotImplementedError(
-            "Sinkhorn transport is not ported to strotss_torch yet "
-            "(ROADMAP.md Queue 1 item 12)"
-        )
     inv_alpha = 1.0 / max(float(alpha), 1.0)
     if target_moments is None:
         target_moments = moment_stats(target)
     l_m = moment_matching_from_stats(target_moments, prediction)
-    l_t = relaxed_emd(target, prediction, "cosine", impl=remd_impl)
-    l_p = relaxed_emd(rgb_to_yuv(_f32(target)), rgb_to_yuv(_f32(prediction)),
-                      "both", impl=remd_impl)
+    yuv_t, yuv_p = rgb_to_yuv(_f32(target)), rgb_to_yuv(_f32(prediction))
+    if use_sinkhorn:
+        l_t = sinkhorn(target, prediction, "cosine", sinkhorn_lambda,
+                       sinkhorn_iters, impl=remd_impl)
+        l_p = sinkhorn(yuv_t, yuv_p, "both", sinkhorn_lambda,
+                       sinkhorn_iters, impl=remd_impl)
+    else:
+        l_t = relaxed_emd(target, prediction, "cosine", impl=remd_impl)
+        l_p = relaxed_emd(yuv_t, yuv_p, "both", impl=remd_impl)
     return l_m + l_t + inv_alpha * l_p
 
 

@@ -5,10 +5,11 @@ A step folds the Laplacian pyramid into the image, runs VGG with the
 STROTSS taps, samples content and prediction rows of the hypercolumn at
 shared strided-grid coordinates, computes the content loss
 (self-similarity) and the style loss (moments against the hoisted target
-statistics, REMD on cosine distance, REMD with the 'both' distance on
-YUV), takes the gradient back to the pyramid and applies RMSprop. PyTorch
-runs eagerly, so the JAX package's per-scale compiled programs become a
-Python loop over steps.
+statistics, a transport term on cosine distance and one with the 'both'
+distance on YUV: REMD, or Sinkhorn under ``use_sinkhorn``), takes the
+gradient back to the pyramid and applies RMSprop. PyTorch runs eagerly,
+so the JAX package's per-scale compiled programs become a Python loop
+over steps.
 """
 
 from __future__ import annotations
@@ -45,6 +46,8 @@ class StepSpec(NamedTuple):
     preprocess_mode: str
     compute_dtype: str
     use_sinkhorn: bool
+    sinkhorn_lambda: float
+    sinkhorn_iters: int
     remd_impl: str
     selfsim_impl: str
     block1_impl: str
@@ -82,6 +85,8 @@ def spec_from_config(cfg: StrotssConfig, device="cpu") -> StepSpec:
         preprocess_mode="keras" if cfg.use_keras_weight else "norm",
         compute_dtype=cfg.compute_dtype,
         use_sinkhorn=cfg.use_sinkhorn,
+        sinkhorn_lambda=cfg.sinkhorn_lambda,
+        sinkhorn_iters=cfg.sinkhorn_iters,
         remd_impl=impl,
         selfsim_impl=impl,
         block1_impl=_block1_route(cfg, device),
@@ -89,13 +94,14 @@ def spec_from_config(cfg: StrotssConfig, device="cpu") -> StepSpec:
 
 
 def set_precision(spec: StepSpec) -> None:
-    """Matmuls in full float32 (no TF32) everywhere. Convolutions in full
-    float32 under ``compute_dtype='float32'`` (the JAX package's HIGHEST);
-    under the bf16 policy block1's float32 convolutions on the 'xla' route
-    may use TF32, the counterpart of the JAX package's DEFAULT precision
-    there (the fused route rounds its operands to bf16 itself). These are
-    process-wide PyTorch switches."""
-    torch.backends.cuda.matmul.allow_tf32 = False
+    """Float32 matmuls in full float32 everywhere: no TF32 on the card and
+    no bf16 or TF32 through oneDNN on the CPU ('highest' pins both).
+    Convolutions in full float32 under ``compute_dtype='float32'`` (the JAX
+    package's HIGHEST); under the bf16 policy block1's float32 convolutions
+    on the 'xla' route may use TF32, the counterpart of the JAX package's
+    DEFAULT precision there (the fused route rounds its operands to bf16
+    itself). These are process-wide PyTorch switches."""
+    torch.set_float32_matmul_precision("highest")
     torch.backends.cudnn.allow_tf32 = spec.compute_dtype == "bfloat16"
 
 
@@ -148,6 +154,8 @@ def step_losses(spec: StepSpec, content_feats, pred, style_targets,
     lc = content_loss(c_feat, p_feat, impl=spec.selfsim_impl)
     ls = style_loss(style_targets, p_feat, alpha,
                     use_sinkhorn=spec.use_sinkhorn,
+                    sinkhorn_lambda=spec.sinkhorn_lambda,
+                    sinkhorn_iters=spec.sinkhorn_iters,
                     remd_impl=spec.remd_impl, target_moments=style_moments)
     denom = 2.0 + alpha + 1.0 / max(alpha, 1.0)
     return (alpha * lc + ls) / denom, lc, ls

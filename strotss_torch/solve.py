@@ -60,8 +60,7 @@ def scale_mode_shapes(cfg: StrotssConfig, content_shape, style_shape,
 def _unported(cfg: StrotssConfig) -> None:
     for field, item in (("start_level", "9"), ("checkpoint_dir", "9"),
                         ("shard_samples", "13"), ("shard_spatial", "13"),
-                        ("use_sinkhorn", "12"), ("remat", "14"),
-                        ("profile_dir", "14")):
+                        ("remat", "14"), ("profile_dir", "14")):
         if getattr(cfg, field):
             raise NotImplementedError(
                 f"StrotssConfig.{field} is not ported to strotss_torch yet "

@@ -14,7 +14,10 @@ A - B lies within rounding of 0, the kernel and the plain version may
 take opposite signs, which moves the two rows of that pair. VGG block1:
 tap1 to 1e-5 of its largest value (exact bf16 products summed in another
 order), tap2 and dx to 1e-3 (where that order moves y1 or dy1 across a
-bf16 rounding boundary, one operand moves by 2^-8).
+bf16 rounding boundary, one operand moves by 2^-8). Sinkhorn LSE passes
+to 1e-5 of max|out| and the streamed loss to rtol 1e-4 of the
+materialized one, the JAX package's own tolerance for its compiled
+streamed kernel (30 iterations of float32 sums in another order).
 """
 
 import numpy as np
@@ -22,7 +25,8 @@ import pytest
 import torch
 
 from strotss_torch.models.weights import random_params
-from strotss_torch.ops.kernels import block1, remd, selfsim
+from strotss_torch.ops import losses
+from strotss_torch.ops.kernels import block1, remd, selfsim, sinkhorn
 
 
 @pytest.fixture
@@ -103,3 +107,30 @@ def test_block1_on_card(cuda_device, h, w):
     again = block1.block1_fwd(x, k1, b1, k2, b2)
     assert torch.equal(t1, again[0]) and torch.equal(t2, again[1])
     assert torch.equal(dx, block1.block1_bwd(t1, t2, g1, g2, k1, k2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,c,dist", [(300, 200, 35, "cosine"),
+                                        (1000, 777, 64, "both"),
+                                        (129, 65, 3, "l2")])
+def test_sinkhorn_lse_on_card(cuda_device, n, m, c, dist):
+    x, y = _rand(n, (n, c), cuda_device), _rand(m + 7, (m, c), cuda_device)
+    logv = 5.0 * _rand(m + 9, (m,), cuda_device)
+    before = sinkhorn.lse_pass.launches
+    got = sinkhorn.lse_pass(x, y, logv, 10.0, dist)
+    assert sinkhorn.lse_pass.launches == before + 1
+    want = sinkhorn.lse_pass_plain(x, y, logv, 10.0, dist)
+    assert _err(got, want) <= 1e-5
+    assert torch.equal(got, sinkhorn.lse_pass(x, y, logv, 10.0, dist))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dist", ["cosine", "both"])
+def test_sinkhorn_streamed_on_card(cuda_device, dist):
+    x, y = _rand(1, (1000, 64), cuda_device), _rand(2, (1000, 64),
+                                                    cuda_device)
+    before = sinkhorn.lse_pass.launches
+    got = losses.sinkhorn(x, y, dist, 10.0, 30, impl="kernel")
+    assert sinkhorn.lse_pass.launches == before + 60
+    want = losses.sinkhorn(x, y, dist, 10.0, 30, impl="plain")
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=0)

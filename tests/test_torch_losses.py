@@ -128,9 +128,3 @@ def test_style_and_content_loss_match_jax():
     jc = JL.content_loss(jnp.asarray(t), jnp.asarray(p), impl="xla")
     np.testing.assert_allclose(float(TL.content_loss(_t(t), _t(p))),
                                float(jc), rtol=1e-5)
-
-
-def test_sinkhorn_not_ported():
-    x = _t(_rand(7, (8, 5)))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        TL.style_loss(x, x, 1.0, use_sinkhorn=True)
