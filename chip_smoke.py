@@ -8,13 +8,14 @@ Run from the repository root on a machine with one NVIDIA H100::
 It builds the CUDA kernels from ``strotss_torch/csrc``, holds each kernel
 against its plain PyTorch version on the card (REMD minima, self-
 similarity forward and backward at N = 1024 and 32769, VGG block1 forward
-and backward at the 512 px content and style shapes and the 64 px content
-shape, the Sinkhorn LSE pass at 32769 x 32769 and a ragged shape, and the
-streamed Sinkhorn loss and gradient), runs a short slice of the 64 px
-scale with the kernels and with the plain versions, and then drives the
-default stylization (VGG16, 9 taps, 1024 samples, 4 scales to 512 px)
-through ``strotss_torch.stylize``, counting each kernel's launches, and
-profiles 10 steps a scale. Last it drives the ``--sinkhorn`` path twice:
+and backward at the 512 px content and style shapes, the 64 px content
+shape and a shape smaller than one forward tile, the Sinkhorn LSE pass
+at 32769 x 32769 and a ragged shape, and the streamed Sinkhorn loss and
+gradient), runs a short slice of the 64 px scale with the kernels and
+with the plain versions, and then drives the default stylization (VGG16,
+9 taps, 1024 samples, 4 scales to 512 px) through
+``strotss_torch.stylize``, counting each kernel's launches, and profiles
+10 steps a scale. Last it drives the ``--sinkhorn`` path twice:
 below the memory gate (BASELINE config 5 at reduced depth, the plain
 materialized Sinkhorn) and above it (32769 samples, kernel K4). Each phase
 prints one JSON line; any failure exits non-zero. The last two lines are
@@ -449,6 +450,9 @@ def check_block1(h, w, seed, rates):
     name = f"block1 {h}x{w}"
 
     t1, t2 = B.block1_fwd(x, k1, b1, k2, b2)
+    # a repeat call builds no weight layout and sets no kernel attribute
+    setups = B.fwd_setups()
+    layouts = B.cached_fwd_layouts(k1, b1, k2, b2)
     again = B.block1_fwd(x, k1, b1, k2, b2)
     check(torch.equal(t1, again[0]) and torch.equal(t2, again[1]),
           f"{name}: two forward runs differ")
@@ -485,6 +489,13 @@ def check_block1(h, w, seed, rates):
         return y1, torch.relu(F.conv2d(y1, kb2, bb2, padding=1))
 
     ly1, ly2 = lib_fwd()
+    fwd_ms = time_ms(lambda: B.block1_fwd(x, k1, b1, k2, b2))
+    fwd_dev = device_ms(lambda: B.block1_fwd(x, k1, b1, k2, b2),
+                        ("block1_fwd_kernel",))
+    check(B.fwd_setups() == setups
+          and B.cached_fwd_layouts(k1, b1, k2, b2) is layouts,
+          f"{name}: repeat forward calls rebuilt the layouts or set the "
+          "kernel's attribute again")
     gb = [g.permute(2, 0, 1)[None].to(bf) for g in (g1, g2)]
     flops = 2.0 * h * w * 64 * (27 + 576)
     wbytes = 4.0 * (64 * 27 + 64 + 64 * 576 + 64)
@@ -495,10 +506,11 @@ def check_block1(h, w, seed, rates):
                     (t1 - p1).abs().max(), (t2 - p2).abs().max())),
                 "tap1_err": e1, "tap2_err": e2, "y1_flips": y1_flips,
                 "tap1_err_vs_f64": vs64[0], "tap2_err_vs_f64": vs64[1],
-                "ms": time_ms(lambda: B.block1_fwd(x, k1, b1, k2, b2)),
-                "device_ms": device_ms(
-                    lambda: B.block1_fwd(x, k1, b1, k2, b2),
-                    ("block1_fwd_kernel",)),
+                "ms": fwd_ms, "device_ms": fwd_dev,
+                # the wrapper's host share: checks, layout lookup, outputs'
+                # allocation and the launch
+                "host_ms": (fwd_ms - fwd_dev if isinstance(fwd_dev, float)
+                            else "not measured"),
                 "plain_ms": time_ms(lambda: B.block1_plain(x, k1, b1, k2,
                                                            b2)),
                 "library_ms": time_ms(lib_fwd),
@@ -667,6 +679,7 @@ def phase_kernels(rates):
     b1_main = check_block1(384, 512, 11, rates)
     check_block1(512, 398, 13, rates)
     check_block1(48, 64, 15, rates)
+    check_block1(5, 7, 16, rates)  # smaller than one of K3a's tiles
     # the --sinkhorn path above the memory gate: N = M = 32769 for the
     # feature term (C = 2179) and the YUV term (C = 3); a ragged shape
     lse_main = check_lse(32769, 32769, 2179, "cosine", 17, rates, reps=3)

@@ -106,15 +106,20 @@ def build_all() -> Dict[str, str]:
     return paths
 
 
+def library(lib_name: str) -> ctypes.CDLL:
+    """The built library of ``csrc/<lib_name>.cu``."""
+    if lib_name not in _libs:
+        for s, path in build_all().items():
+            if s not in _libs:
+                _libs[s] = ctypes.CDLL(path)
+    return _libs[lib_name]
+
+
 def function(name: str):
     """The C function ``name`` from its built library, argtypes set."""
     if name not in _fns:
         lib_name, argtypes = _SIGNATURES[name]
-        if lib_name not in _libs:
-            for s, path in build_all().items():
-                if s not in _libs:
-                    _libs[s] = ctypes.CDLL(path)
-        fn = getattr(_libs[lib_name], name)
+        fn = getattr(library(lib_name), name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _fns[name] = fn

@@ -198,3 +198,58 @@ def test_three_steps_through_fused_block1_match_jax():
     assert got.shape == want.shape == (3, 3)
     np.testing.assert_allclose(got, want, rtol=1e-4)
     assert tuple(img.shape) == (54, 64, 3) and img.dtype == torch.uint8
+
+
+def _oihw(seed):
+    return _args(params_from_jax(_weights(seed)))
+
+
+def test_fwd_layouts_are_the_oihw_weights_rounded_and_permuted():
+    k1, b1, k2, b2 = _oihw(5)
+    k1l, b1l, k2l, b2l = B.fwd_layouts(k1, b1, k2, b2)
+    assert k1l.dtype == k2l.dtype == torch.bfloat16
+    assert tuple(k1l.shape) == (64, 32) and tuple(k2l.shape) == (3, 3, 64, 64)
+    assert k1l.is_contiguous() and k2l.is_contiguous()
+    k1n, k2n = k1.numpy(), k2.numpy()
+    for co, ky, kx, ci in [(0, 0, 0, 0), (63, 2, 1, 2), (17, 1, 2, 0)]:
+        want = torch.tensor(k1n[co, ci, ky, kx]).to(torch.bfloat16)
+        assert k1l[co, (ky * 3 + kx) * 3 + ci] == want
+    want1 = torch.cat([k1.permute(0, 2, 3, 1).reshape(64, 27),
+                       torch.zeros(64, 5)], 1).to(torch.bfloat16)
+    assert torch.equal(k1l.view(torch.int16), want1.view(torch.int16))
+    want2 = k2.to(torch.bfloat16).permute(2, 3, 1, 0)
+    assert torch.equal(k2l.view(torch.int16), want2.view(torch.int16))
+    assert k2l[2, 0, 5, 60] == torch.tensor(k2n[60, 5, 2, 0]).to(
+        torch.bfloat16)
+    assert b1l.dtype == b2l.dtype == torch.float32
+    assert torch.equal(b1l, b1) and torch.equal(b2l, b2)
+
+
+def test_cached_fwd_layouts_returns_the_same_objects_for_the_same_weights(
+        monkeypatch):
+    builds = []
+    real = B.fwd_layouts
+    monkeypatch.setattr(B, "fwd_layouts",
+                        lambda *a: builds.append(1) or real(*a))
+    w = _oihw(6)
+    first = B.cached_fwd_layouts(*w)
+    again = B.cached_fwd_layouts(*w)
+    assert builds == [1]
+    assert all(a is b for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("which", [0, 1, 2, 3])
+def test_cached_fwd_layouts_follow_a_new_tensor_or_an_inplace_edit(which):
+    w = list(_oihw(7))
+    first = B.cached_fwd_layouts(*w)
+    # a new tensor with the same values: a new entry, equal layouts
+    w[which] = w[which].clone()
+    fresh = B.cached_fwd_layouts(*w)
+    assert fresh[which] is not first[which]
+    assert torch.equal(fresh[which].float(), first[which].float())
+    # an in-place edit bumps _version: the layouts are rebuilt
+    w[which].mul_(2)
+    edited = B.cached_fwd_layouts(*w)
+    assert edited[which] is not fresh[which]
+    assert torch.equal(edited[which], B.fwd_layouts(*w)[which])
+    assert torch.equal(edited[which].float(), 2 * fresh[which].float())

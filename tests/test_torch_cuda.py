@@ -26,7 +26,7 @@ import torch
 
 from strotss_torch.models.weights import random_params
 from strotss_torch.ops import losses
-from strotss_torch.ops.kernels import block1, remd, selfsim, sinkhorn
+from strotss_torch.ops.kernels import block1, build, remd, selfsim, sinkhorn
 
 
 @pytest.fixture
@@ -79,19 +79,24 @@ def test_selfsim_on_card(cuda_device, n, c):
 
 
 def _err(got, want) -> float:
-    return float((got.double() - want.double()).abs().max()
-                 / want.double().abs().max())
+    scale = want.double().abs().max().clamp_min(1e-30)
+    return float((got.double() - want.double()).abs().max() / scale)
+
+
+def _block1_weights(device):
+    p = random_params("16", 0)
+    k1 = p["block1_conv1"]["kernel"].to(device)
+    k2 = p["block1_conv2"]["kernel"].to(device)
+    return k1, 0.1 * _rand(1, (64,), device), k2, 0.1 * _rand(2, (64,),
+                                                               device)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("h,w", [(37, 53), (48, 64)])
+@pytest.mark.parametrize("h,w", [(37, 53), (48, 64), (1, 1), (5, 7),
+                                 (17, 33), (512, 398)])
 def test_block1_on_card(cuda_device, h, w):
     torch.backends.cudnn.allow_tf32 = False
-    p = random_params("16", 0)
-    k1 = p["block1_conv1"]["kernel"].to(cuda_device)
-    k2 = p["block1_conv2"]["kernel"].to(cuda_device)
-    b1, b2 = 0.1 * _rand(1, (64,), cuda_device), 0.1 * _rand(2, (64,),
-                                                                cuda_device)
+    k1, b1, k2, b2 = _block1_weights(cuda_device)
     x = _rand(h, (h, w, 3), cuda_device)
     g1, g2 = _rand(3, (h, w, 64), cuda_device), _rand(4, (h, w, 64),
                                                        cuda_device)
@@ -107,6 +112,30 @@ def test_block1_on_card(cuda_device, h, w):
     again = block1.block1_fwd(x, k1, b1, k2, b2)
     assert torch.equal(t1, again[0]) and torch.equal(t2, again[1])
     assert torch.equal(dx, block1.block1_bwd(t1, t2, g1, g2, k1, k2))
+
+
+@pytest.mark.cuda
+def test_block1_fwd_repeat_call_does_no_setup(cuda_device, monkeypatch):
+    """A repeat call with the same weights builds no layout and sets no
+    kernel attribute; an in-place edit of k2 is followed."""
+    k1, b1, k2, b2 = _block1_weights(cuda_device)
+    k2 = k2.clone()
+    x = _rand(5, (40, 24, 3), cuda_device)
+    block1.block1_fwd(x, k1, b1, k2, b2)
+    setups = block1.fwd_setups()
+    builds = []
+    real = block1.fwd_layouts
+    monkeypatch.setattr(block1, "fwd_layouts",
+                        lambda *a: builds.append(1) or real(*a))
+    first = block1.block1_fwd(x, k1, b1, k2, b2)
+    assert builds == [] and block1.fwd_setups() == setups
+    k2.mul_(2)
+    t1, t2 = block1.block1_fwd(x, k1, b1, k2, b2)
+    assert builds == [1] and block1.fwd_setups() == setups
+    assert torch.equal(t1, first[0]) and not torch.equal(t2, first[1])
+    p1, p2 = block1.block1_plain(x, k1, b1, k2, b2)
+    assert _err(t1, p1) <= 1e-5
+    assert _err(t2, p2) <= 1e-3
 
 
 @pytest.mark.cuda
