@@ -457,6 +457,8 @@ def check_block1(h, w, seed, rates):
     check(torch.equal(t1, again[0]) and torch.equal(t2, again[1]),
           f"{name}: two forward runs differ")
     dx = B.block1_bwd(t1, t2, g1, g2, k1, k2)
+    bwd_setups = B.bwd_setups()
+    bwd_layouts = B.cached_bwd_layouts(k1, k2)
     check(torch.equal(dx, B.block1_bwd(t1, t2, g1, g2, k1, k2)),
           f"{name}: two backward runs differ")
     # Plain versions on the same inputs (the backward on the kernel's taps).
@@ -496,6 +498,21 @@ def check_block1(h, w, seed, rates):
           and B.cached_fwd_layouts(k1, b1, k2, b2) is layouts,
           f"{name}: repeat forward calls rebuilt the layouts or set the "
           "kernel's attribute again")
+
+    def bwd():
+        return B.block1_bwd(t1, t2, g1, g2, k1, k2)
+
+    bwd_ms = time_ms(bwd)
+    # K3b's two kernels apart: dy1 (the transposed conv2 and the masks) and
+    # dx (the transposed conv1)
+    dy1_dev = device_ms(bwd, ("block1_dy1_kernel",))
+    dx_dev = device_ms(bwd, ("block1_dx_kernel",))
+    bwd_dev = (dy1_dev + dx_dev if isinstance(dy1_dev, float)
+               and isinstance(dx_dev, float) else "not measured")
+    check(B.bwd_setups() == bwd_setups
+          and B.cached_bwd_layouts(k1, k2) is bwd_layouts,
+          f"{name}: repeat backward calls rebuilt the layouts or set a "
+          "kernel's attribute again")
     gb = [g.permute(2, 0, 1)[None].to(bf) for g in (g1, g2)]
     flops = 2.0 * h * w * 64 * (27 + 576)
     wbytes = 4.0 * (64 * 27 + 64 + 64 * 576 + 64)
@@ -518,10 +535,10 @@ def check_block1(h, w, seed, rates):
                            bound_ms(flops, fwd_bytes, rates, "bf16")))},
         "bwd": {"shape": [h, w], "max_abs_err": float((dx - pdx).abs().max()),
                 "dx_err": edx, "dx_err_vs_f64": vs64[2],
-                "ms": time_ms(lambda: B.block1_bwd(t1, t2, g1, g2, k1, k2)),
-                "device_ms": device_ms(
-                    lambda: B.block1_bwd(t1, t2, g1, g2, k1, k2),
-                    ("block1_dy1_kernel", "block1_dx_kernel")),
+                "ms": bwd_ms, "device_ms": bwd_dev,
+                "dy1_device_ms": dy1_dev, "dx_device_ms": dx_dev,
+                "host_ms": (bwd_ms - bwd_dev if isinstance(bwd_dev, float)
+                            else "not measured"),
                 "plain_ms": time_ms(lambda: B.block1_bwd_plain(
                     t1, t2, g1, g2, k1, k2)),
                 "library_ms": time_ms(lambda: torch.autograd.grad(

@@ -51,47 +51,45 @@
 // every warp for every tile; the float2 stores, each touching 8 pixels'
 // lines; conv1's fragment building and epilogue.
 //
-// Backward (K3b) still computes on the CUDA cores, in the first design:
-// bf16 values are widened to f32 (exactly) and multiplied with f32 FMAs.
-// Its dy1 kernel has the forward's shape and can take the forward's
-// tensor-core conv2 routine (`conv64_mma`) in its own redesign. What it
-// does about the bytes:
-// - Two kernels: dy1 = conv2^T(dz2)*[tap1 > 0] + bf16(g1*[tap1>0])
-//   per tile from dz2 = bf16(g2*[tap2 > 0]) with a 1-pixel halo, written to
-//   a bf16 scratch (128 B a pixel); then dx = conv1^T(dy1) per tile from a
-//   halo of that scratch. Both transposed convolutions are plain 3x3
-//   convolutions with the flipped, transposed kernels the wrapper passes,
-//   so dx needs no `_fold27`. The scratch costs 2 x 128 B a pixel of the
-//   bound's 1036, and keeps each kernel's shared memory at ~97 KB, two
-//   blocks an SM.
-// - The 64x64 kernel (73.7 KB as bf16) sits in dynamic shared memory.
-//   Thread (g, cg) of a conv block owns 4 pixels x 8 output channels: per
-//   pair of input channels it reads 4 words of activations (pixel stride
-//   33 words, so the 4 pixel groups of a warp hit distinct banks) and two
-//   16-byte kernel rows (8 lanes read 128 contiguous bytes; the warp's 4
-//   pixel groups share them), for 64 FMAs.
-// No atomics: each output is written by one thread, so results are the
-// same bit for bit on every run.
+// Backward (K3b), on the tensor cores as well, in two kernels joined by a
+// bf16 scratch dy1 (128 B a pixel, written once and read once, mostly from
+// L2: 2 x 128 B of the bound's 1036 B a pixel):
+// - dy1 = r(conv(dz2, k2r) * [tap1 > 0] + r(g1 * [tap1 > 0])) with
+//   dz2 = r(g2 * [tap2 > 0]). The transposed conv2 is a plain 3x3
+//   convolution with k2 flipped and its channel axes swapped ([tap][co][ci],
+//   laid out once per weight tensor by the wrapper), so it is K3a's conv2
+//   routine `conv64_mma` as it is, on the same 8 x 16 tiles: persistent
+//   blocks, two of 128 threads an SM (97 KB of shared memory each), copy
+//   the 73.7 KB kernel into shared memory once and walk the tiles with a
+//   fixed stride. Per tile the block builds dz2 on the tile plus a 1-pixel
+//   halo from f32 g2 and tap2 (masked and rounded, so no `cp.async`; each
+//   thread keeps 4 pixel chunks' loads in flight), zero outside the image;
+//   the epilogue reads tap1 and g1 at the mma fragments' positions (a lane
+//   quad covers one 32-byte sector) and writes r(dy1). The other block on
+//   the SM overlaps one block's loads with its mma.
+// - dx = conv(dy1, k1r) on `mma.sync` too: M = 128 pixels, K = 9 taps x 64
+//   channels, N = 8 (3 channels and 5 zero columns). The dy1 tile with its
+//   halo comes by `cp.async` into one of two buffers while the other is
+//   read with `ldmatrix`; k1r (9 KB) stays in registers as B fragments.
+// As in the forward, the wrapper builds the weight layouts once per weight
+// tensor, and the C entry sets the dy1 kernel's shared-memory limit once
+// per device. Measured on an H100 80GB HBM3 at 700 W (`chip_smoke.py`,
+// 384 x 512): 0.110 ms on the device, 1.8x its bound (dy1 0.095 ms, dx
+// 0.015), where the CUDA-core design it replaces took 0.50 ms (dy1 0.445,
+// dx 0.053). dy1 is now 1.4x its own floor (g1, g2, tap1 and tap2 read,
+// dy1 written: 1,152 B a pixel, 0.068 ms); what holds it there is not
+// measured yet. Candidates: the halo's 1.41x reads of g2 and tap2, and a
+// block's dz2 build, which nothing in the block overlaps.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-#define TH 8    // output tile rows of the backward's conv kernels
-#define TW 16   // output tile columns (TH * TW = 128 = 32 groups of 4)
-#define YH (TH + 2)
-#define YW (TW + 2)
-#define PW 33   // shared-memory words a pixel: 64 bf16 + 1 word of padding
-#define NT 256
-#define DH 8    // dx kernel tile rows
-#define DW 32   // dx kernel tile columns (DH * DW = 256 = NT)
-
 #define K2_BYTES (9 * 64 * 64 * 2)
-#define DY1_SMEM (K2_BYTES + YH * YW * PW * 4)
-#define DX_SMEM ((DH + 2) * (DW + 2) * PW * 4 + 9 * 64 * 16)
 
-// Forward: FTH x FTW output tiles, y1 on FYH x FYW pixels (1-pixel halo), x
-// on FXH x FXW pixels (2-pixel halo); FM y1 pixels in FM_BLOCKS m16 blocks;
-// FNT threads a block, 2 blocks an SM.
+// FTH x FTW output tiles in both directions. Forward: y1 on FYH x FYW
+// pixels (1-pixel halo), x on FXH x FXW pixels (2-pixel halo); FM y1 pixels
+// in FM_BLOCKS m16 blocks; FNT threads a block, 2 blocks an SM. Backward:
+// dz2 and dy1 on FYH x FYW pixels.
 #define FTH 8
 #define FTW 16
 #define FYH (FTH + 2)
@@ -103,6 +101,9 @@
 #define FX_FLOATS (FXH * FXW * 3)
 #define FNT 128
 #define FWD_SMEM (K2_BYTES + FM * 128 + 2 * FX_FLOATS * 4 + 2 * 64 * 4)
+#define DY1_SMEM (K2_BYTES + FM * 128)
+#define DX_SMEM (2 * FM * 128)  // under 48 KB: no attribute to set
+#define DX_BLOCKS 4             // dx blocks an SM
 #define MAX_DEVICES 64
 
 __device__ __forceinline__ float bf16r(float v) {
@@ -115,73 +116,11 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return a | (b << 16);
 }
 
-__device__ __forceinline__ float lo_f(uint32_t u) { return __uint_as_float(u << 16); }
-__device__ __forceinline__ float hi_f(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
-
 __device__ __forceinline__ bool inside(int gh, int gw, int h, int w) {
   return gh >= 0 && gh < h && gw >= 0 && gw < w;
 }
 
-// Copies the (9, 64, 64) bf16 kernel into shared memory, 16 bytes a thread.
-__device__ __forceinline__ void load_k64(uint4* ks, const uint4* k) {
-  for (int i = threadIdx.x; i < K2_BYTES / 16; i += NT) ks[i] = k[i];
-}
-
-// acc[p][j] = sum over the 3x3 taps and 64 input channels of
-// in[pixel p shifted by the tap][ci] * w[tap][ci][8 * cg + j].
-// `in` holds a (TH + 2) x (TW + 2) tile of 64-channel bf16 pixels, PW words
-// a pixel; base[p] is the word offset of output pixel p's top-left tap.
-__device__ __forceinline__ void conv64_group(const uint32_t* in,
-                                             const uint4* w, const int base[4],
-                                             int cg, float acc[4][8]) {
-#pragma unroll
-  for (int p = 0; p < 4; ++p)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[p][j] = 0.f;
-  for (int ky = 0; ky < 3; ++ky) {
-    for (int kx = 0; kx < 3; ++kx) {
-      const int off = (ky * YW + kx) * PW;
-      const uint4* wt = w + (ky * 3 + kx) * 64 * 8 + cg;
-#pragma unroll 4
-      for (int cp = 0; cp < 32; ++cp) {
-        uint32_t u[4];
-#pragma unroll
-        for (int p = 0; p < 4; ++p) u[p] = in[base[p] + off + cp];
-        const uint4 wa = wt[(2 * cp) * 8];
-        const uint4 wb = wt[(2 * cp + 1) * 8];
-        const float fa[8] = {lo_f(wa.x), hi_f(wa.x), lo_f(wa.y), hi_f(wa.y),
-                             lo_f(wa.z), hi_f(wa.z), lo_f(wa.w), hi_f(wa.w)};
-        const float fb[8] = {lo_f(wb.x), hi_f(wb.x), lo_f(wb.y), hi_f(wb.y),
-                             lo_f(wb.z), hi_f(wb.z), lo_f(wb.w), hi_f(wb.w)};
-#pragma unroll
-        for (int p = 0; p < 4; ++p) {
-          const float a = lo_f(u[p]);
-          const float b = hi_f(u[p]);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            acc[p][j] = fmaf(a, fa[j], acc[p][j]);
-            acc[p][j] = fmaf(b, fb[j], acc[p][j]);
-          }
-        }
-      }
-    }
-  }
-}
-
-// Thread tid's 4 output pixels (tile row, tile column) and their base
-// offsets into a (TH + 2) x (TW + 2) input tile.
-__device__ __forceinline__ void group_pixels(int g, int r[4], int c[4],
-                                             int base[4]) {
-#pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    const int q = 4 * g + p;
-    r[p] = q / TW;
-    c[p] = q % TW;
-    base[p] = (r[p] * YW + c[p]) * PW;
-  }
-}
-
-// ---- tensor-core building blocks of the forward --------------------------
+// ---- tensor-core building blocks --------------------------------------
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -445,146 +384,274 @@ block1_fwd_kernel(const float* __restrict__ x, const uint32_t* __restrict__ k1,
   }
 }
 
-// dy1 = conv(dz2, k2r) * [tap1 > 0] + bf16(g1 * [tap1 > 0]), rounded to bf16,
-// with dz2 = bf16(g2 * [tap2 > 0]); k2r (9, 64, 64) bf16 is k2 flipped in
-// both spatial axes with its channel axes swapped, [ky][kx][co][ci].
-__global__ void __launch_bounds__(NT, 2)
+// Writes dz2 = r(g2 * [tap2 > 0]) on the FYH x FYW pixels around the tile
+// at (h0, w0) into dzs as 128-byte bf16 rows, swizzled; 0 outside the
+// image (the transposed convolution's SAME padding). Each thread starts the
+// loads of 4 of its 16-byte chunks before it packs any of them.
+__device__ __forceinline__ void build_dz2(uint4* dzs, const float* g2,
+                                          const float* tap2, int h, int w,
+                                          int h0, int w0) {
+  constexpr int PER = (FM * 8 + FNT - 1) / FNT;
+  constexpr int BATCH = 4;
+  static_assert(PER % BATCH == 0, "whole batches of chunks a thread");
+#pragma unroll
+  for (int j0 = 0; j0 < PER; j0 += BATCH) {
+    float4 gv[BATCH][2], tv[BATCH][2];
+#pragma unroll
+    for (int j = 0; j < BATCH; ++j) {
+      const int i = threadIdx.x + (j0 + j) * FNT;
+      const int m = i >> 3;
+      const int gh = h0 - 1 + m / FYW;
+      const int gw = w0 - 1 + m % FYW;
+      if (i < FM * 8 && inside(gh, gw, h, w)) {
+        const size_t at = ((size_t)gh * w + gw) * 64 + (i & 7) * 8;
+        const float4* gp = reinterpret_cast<const float4*>(g2 + at);
+        const float4* tp = reinterpret_cast<const float4*>(tap2 + at);
+        gv[j][0] = gp[0];
+        gv[j][1] = gp[1];
+        tv[j][0] = tp[0];
+        tv[j][1] = tp[1];
+      } else {
+        tv[j][0] = tv[j][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+        gv[j][0] = gv[j][1] = tv[j][0];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < BATCH; ++j) {
+      const int i = threadIdx.x + (j0 + j) * FNT;
+      if (i >= FM * 8) continue;
+      uint32_t u[4];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float4 gg = gv[j][e];
+        const float4 tt = tv[j][e];
+        u[2 * e] = pack_bf16(tt.x > 0.f ? gg.x : 0.f, tt.y > 0.f ? gg.y : 0.f);
+        u[2 * e + 1] = pack_bf16(tt.z > 0.f ? gg.z : 0.f, tt.w > 0.f ? gg.w : 0.f);
+      }
+      const int m = i >> 3;
+      dzs[(i & ~7) + ((i & 7) ^ (m & 7))] = make_uint4(u[0], u[1], u[2], u[3]);
+    }
+  }
+}
+
+// dy1 = r(conv(dz2, k2r) * [tap1 > 0] + r(g1 * [tap1 > 0])) with
+// dz2 = r(g2 * [tap2 > 0]); k2r (9, 64, 64) bf16 is k2 flipped in both
+// spatial axes with its channel axes swapped, [ky][kx][co][ci]; dy1
+// (h, w, 64) bf16. Two blocks an SM; block b takes tiles b, b + gridDim.x,
+// ... in that order.
+__global__ void __launch_bounds__(FNT, 2)
 block1_dy1_kernel(const float* __restrict__ tap1, const float* __restrict__ tap2,
                   const float* __restrict__ g1, const float* __restrict__ g2,
                   const uint4* __restrict__ k2r, int h, int w,
-                  uint4* __restrict__ dy1) {
+                  uint32_t* __restrict__ dy1) {
   extern __shared__ uint4 smem[];
-  uint4* ks = smem;
-  uint32_t* dzs = reinterpret_cast<uint32_t*>(smem + K2_BYTES / 16);
+  uint4* k2s = smem;
+  uint4* dzs = smem + K2_BYTES / 16;
   const int tid = threadIdx.x;
-  const int h0 = blockIdx.y * TH;
-  const int w0 = blockIdx.x * TW;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int q = lane & 3;
+  const int ntx = (w + FTW - 1) / FTW;
+  const int ntiles = ntx * ((h + FTH - 1) / FTH);
 
-  load_k64(ks, k2r);
-  for (int i = tid; i < YH * YW * 32; i += NT) {
-    const int q = i >> 5;
-    const int cw = i & 31;
-    const int gh = h0 - 1 + q / YW;
-    const int gw = w0 - 1 + q % YW;
-    uint32_t u = 0;
-    if (inside(gh, gw, h, w)) {
-      const size_t at = ((size_t)gh * w + gw) * 64 + 2 * cw;
-      const float2 gv = *reinterpret_cast<const float2*>(g2 + at);
-      const float2 tv = *reinterpret_cast<const float2*>(tap2 + at);
-      u = pack_bf16(tv.x > 0.f ? gv.x : 0.f, tv.y > 0.f ? gv.y : 0.f);
-    }
-    dzs[q * PW + cw] = u;
-  }
-  __syncthreads();
+  // once per block: k2r, swizzled as K3a's k2
+  for (int i = tid; i < K2_BYTES / 16; i += FNT)
+    cp_async16(k2s + (i & ~7) + ((i & 7) ^ ((i >> 3) & 7)), k2r + i);
+  cp_async_commit();
+  const uint32_t dza = smem_addr(dzs);
+  const uint32_t k2a = smem_addr(k2s);
 
-  const int g = tid >> 3;
-  const int cg = tid & 7;
-  int r[4], c[4], base[4];
-  group_pixels(g, r, c, base);
-  float acc[4][8];
-  conv64_group(dzs, ks, base, cg, acc);
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int h0 = (tile / ntx) * FTH;
+    const int w0 = (tile % ntx) * FTW;
+    __syncthreads();  // the last tile's convolution is done with dzs
+    build_dz2(dzs, g2, tap2, h, w, h0, w0);
+    cp_async_wait_all();
+    __syncthreads();  // dz2 is whole; k2r is here
+
+    float acc[2][8][4];
 #pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    const int gh = h0 + r[p];
-    const int gw = w0 + c[p];
-    if (!inside(gh, gw, h, w)) continue;
-    const size_t at = ((size_t)gh * w + gw) * 64 + cg * 8;
-    const float4* t4 = reinterpret_cast<const float4*>(tap1 + at);
-    const float4* g4 = reinterpret_cast<const float4*>(g1 + at);
-    const float4 ta = t4[0], tb = t4[1], ga = g4[0], gb = g4[1];
-    const float t[8] = {ta.x, ta.y, ta.z, ta.w, tb.x, tb.y, tb.z, tb.w};
-    const float gg[8] = {ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, gb.z, gb.w};
-    float d[8];
+    for (int mb = 0; mb < 2; ++mb)
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      d[j] = t[j] > 0.f ? acc[p][j] + bf16r(gg[j]) : 0.f;
-    dy1[((size_t)gh * w + gw) * 8 + cg] =
-        make_uint4(pack_bf16(d[0], d[1]), pack_bf16(d[2], d[3]),
-                   pack_bf16(d[4], d[5]), pack_bf16(d[6], d[7]));
-  }
-}
-
-// dx = conv(dy1, k1r): one thread a pixel of a DH x DW tile. k1r (9, 64, 4)
-// f32, bf16-rounded: [ky][kx][co][c] of k1 flipped in both spatial axes,
-// c padded from 3 to 4.
-__global__ void __launch_bounds__(NT)
-block1_dx_kernel(const uint32_t* __restrict__ dy1, const float4* __restrict__ k1r,
-                 int h, int w, float* __restrict__ dx) {
-  extern __shared__ uint4 smem[];
-  uint32_t* ds = reinterpret_cast<uint32_t*>(smem);
-  float4* ks = reinterpret_cast<float4*>(ds + (DH + 2) * (DW + 2) * PW);
-  const int tid = threadIdx.x;
-  const int h0 = blockIdx.y * DH;
-  const int w0 = blockIdx.x * DW;
-
-  for (int i = tid; i < 9 * 64; i += NT) ks[i] = k1r[i];
-  for (int i = tid; i < (DH + 2) * (DW + 2) * 32; i += NT) {
-    const int q = i >> 5;
-    const int cw = i & 31;
-    const int gh = h0 - 1 + q / (DW + 2);
-    const int gw = w0 - 1 + q % (DW + 2);
-    ds[q * PW + cw] =
-        inside(gh, gw, h, w) ? dy1[((size_t)gh * w + gw) * 32 + cw] : 0u;
-  }
-  __syncthreads();
-
-  const int r = tid / DW;
-  const int c = tid % DW;
-  float a0 = 0.f, a1 = 0.f, a2 = 0.f;
-  for (int ky = 0; ky < 3; ++ky) {
-    for (int kx = 0; kx < 3; ++kx) {
-      const uint32_t* src = ds + ((r + ky) * (DW + 2) + c + kx) * PW;
-      const float4* kt = ks + (ky * 3 + kx) * 64;
-#pragma unroll 8
-      for (int cp = 0; cp < 32; ++cp) {
-        const uint32_t u = src[cp];
-        const float lo = lo_f(u), hi = hi_f(u);
-        const float4 ka = kt[2 * cp];
-        const float4 kb = kt[2 * cp + 1];
-        a0 = fmaf(hi, kb.x, fmaf(lo, ka.x, a0));
-        a1 = fmaf(hi, kb.y, fmaf(lo, ka.y, a1));
-        a2 = fmaf(hi, kb.z, fmaf(lo, ka.z, a2));
+      for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[mb][nb][j] = 0.f;
+    conv64_mma(dza, k2a, warp, lane, acc);
+#pragma unroll
+    for (int mb = 0; mb < 2; ++mb) {
+      const int gh = h0 + 2 * warp + mb;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int gw = w0 + g + 8 * hh;
+        if (gh >= h || gw >= w) continue;
+        const size_t px = (size_t)gh * w + gw;
+        const float* t1 = tap1 + px * 64 + 2 * q;
+        const float* gg = g1 + px * 64 + 2 * q;
+        uint32_t* d = dy1 + px * 32 + q;
+#pragma unroll
+        for (int nb = 0; nb < 8; ++nb) {
+          const float2 t = *reinterpret_cast<const float2*>(t1 + nb * 8);
+          const float2 gv = *reinterpret_cast<const float2*>(gg + nb * 8);
+          d[nb * 4] = pack_bf16(
+              t.x > 0.f ? acc[mb][nb][2 * hh] + bf16r(gv.x) : 0.f,
+              t.y > 0.f ? acc[mb][nb][2 * hh + 1] + bf16r(gv.y) : 0.f);
+        }
       }
     }
   }
-  const int gh = h0 + r;
-  const int gw = w0 + c;
-  if (inside(gh, gw, h, w)) {
-    float* o = dx + ((size_t)gh * w + gw) * 3;
-    o[0] = a0;
-    o[1] = a1;
-    o[2] = a2;
+}
+
+// Starts the copy of dy1's FYH x FYW pixels around the tile at (h0, w0)
+// into ts as swizzled 128-byte rows; zeros outside the image.
+__device__ __forceinline__ void load_dy1(uint4* ts, const uint4* dy1, int h,
+                                         int w, int h0, int w0) {
+  for (int i = threadIdx.x; i < FM * 8; i += FNT) {
+    const int m = i >> 3;
+    const int gh = h0 - 1 + m / FYW;
+    const int gw = w0 - 1 + m % FYW;
+    uint4* dst = ts + (i & ~7) + ((i & 7) ^ (m & 7));
+    if (inside(gh, gw, h, w))
+      cp_async16(dst, dy1 + ((size_t)gh * w + gw) * 8 + (i & 7));
+    else
+      *dst = make_uint4(0u, 0u, 0u, 0u);
   }
 }
 
-// How many times the forward's C entry set the kernel's shared-memory limit
-// (once per device and process).
+// dx = conv(dy1, k1r): k1r (9, 64, 8) bf16 [ky][kx][co][c] is k1 flipped in
+// both spatial axes with its channel axes swapped, c padded from 3 to 8
+// with zeros; dx (h, w, 3) f32. DX_BLOCKS blocks an SM, each walking the
+// tiles as the dy1 kernel does, the next tile's dy1 in flight.
+__global__ void __launch_bounds__(FNT, DX_BLOCKS)
+block1_dx_kernel(const uint4* __restrict__ dy1,
+                 const unsigned short* __restrict__ k1r, int h, int w,
+                 float* __restrict__ dx) {
+  extern __shared__ uint4 smem[];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int q = lane & 3;
+  const int ntx = (w + FTW - 1) / FTW;
+  const int ntiles = ntx * ((h + FTH - 1) / FTH);
+
+  load_dy1(smem, dy1, h, w, (blockIdx.x / ntx) * FTH, (blockIdx.x % ntx) * FTW);
+  cp_async_commit();
+  // k1r as B fragments: kb[tap][ks][j] holds k = 16 ks + 8 j + 2q + {0, 1}
+  // of output channel g
+  uint32_t kb[9][4][2];
+#pragma unroll
+  for (int tap = 0; tap < 9; ++tap)
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int k = tap * 64 + 16 * ks + 8 * j + 2 * q;
+        kb[tap][ks][j] = (uint32_t)__ldg(k1r + k * 8 + g) |
+                         ((uint32_t)__ldg(k1r + (k + 1) * 8 + g) << 16);
+      }
+  // A: lane l gives the row of pixel column l % 16 at channel chunk l / 16
+  int pa[2];
+#pragma unroll
+  for (int mb = 0; mb < 2; ++mb) pa[mb] = (2 * warp + mb) * FYW + (lane & 15);
+  const int ha = lane >> 4;
+
+  int it = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, ++it) {
+    const int h0 = (tile / ntx) * FTH;
+    const int w0 = (tile % ntx) * FTW;
+    cp_async_wait_all();
+    __syncthreads();  // this tile's dy1 is here; the other buffer is free
+    const int next = tile + gridDim.x;
+    if (next < ntiles)
+      load_dy1(smem + ((it + 1) & 1) * FM * 8, dy1, h, w, (next / ntx) * FTH,
+               (next % ntx) * FTW);
+    cp_async_commit();
+
+    const uint32_t in = smem_addr(smem + (it & 1) * FM * 8);
+    float acc[2][4];
+#pragma unroll
+    for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[mb][j] = 0.f;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int shift = (tap / 3) * FYW + tap % 3;
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+        for (int mb = 0; mb < 2; ++mb) {
+          uint32_t a[4];
+          ldsm_x4(in + swz(pa[mb] + shift, 2 * ks + ha), a);
+          mma_bf16(acc[mb], a, kb[tap][ks][0], kb[tap][ks][1]);
+        }
+    }
+    // lane (g, q) holds channels 2q, 2q + 1 of columns g and g + 8: lanes
+    // q = 0 and 1 hold the 3 real ones
+    if (q < 2) {
+#pragma unroll
+      for (int mb = 0; mb < 2; ++mb) {
+        const int gh = h0 + 2 * warp + mb;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int gw = w0 + g + 8 * hh;
+          if (gh >= h || gw >= w) continue;
+          float* o = dx + ((size_t)gh * w + gw) * 3 + 2 * q;
+          o[0] = acc[mb][2 * hh];
+          if (q == 0) o[1] = acc[mb][2 * hh + 1];
+        }
+      }
+    }
+  }
+}
+
+// Per device: the SM count, read once, and how many times each C entry set
+// its kernels' shared-memory limits (once per device and process).
+static int sm_count[MAX_DEVICES];
+static bool fwd_ready[MAX_DEVICES];
+static bool bwd_ready[MAX_DEVICES];
 static int fwd_setups = 0;
+static int bwd_setups = 0;
+
+// The current device and its SM count.
+static cudaError_t current_device(int* dev) {
+  cudaError_t err = cudaGetDevice(dev);
+  if (err != cudaSuccess) return err;
+  if (*dev < 0 || *dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (sm_count[*dev] == 0)
+    err = cudaDeviceGetAttribute(&sm_count[*dev],
+                                 cudaDevAttrMultiProcessorCount, *dev);
+  return err;
+}
+
+static int tiles(int h, int w) {
+  return ((h + FTH - 1) / FTH) * ((w + FTW - 1) / FTW);
+}
+
+// How many blocks to launch: `per_sm` an SM, no more than there are tiles.
+static int grid_size(int ntiles, int per_sm, int dev) {
+  const int full = per_sm * sm_count[dev];
+  return ntiles < full ? ntiles : full;
+}
 
 // Returns cudaGetLastError() after the launch.
 extern "C" int block1_fwd(const float* x, const void* k1, const float* b1,
                           const void* k2, const float* b2, int h, int w,
                           float* tap1, float* tap2, cudaStream_t stream) {
-  static int sm_count[MAX_DEVICES];
   int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = current_device(&dev);
   if (err != cudaSuccess) return (int)err;
-  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  if (sm_count[dev] == 0) {
+  if (!fwd_ready[dev]) {
     err = cudaFuncSetAttribute(block1_fwd_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                FWD_SMEM);
     if (err != cudaSuccess) return (int)err;
-    int n = 0;
-    err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
-    sm_count[dev] = n;
+    fwd_ready[dev] = true;
     ++fwd_setups;
   }
-  const int ntiles = ((h + FTH - 1) / FTH) * ((w + FTW - 1) / FTW);
+  const int ntiles = tiles(h, w);
   if (ntiles == 0) return 0;
-  const int grid = ntiles < 2 * sm_count[dev] ? ntiles : 2 * sm_count[dev];
-  block1_fwd_kernel<<<grid, FNT, FWD_SMEM, stream>>>(
+  block1_fwd_kernel<<<grid_size(ntiles, 2, dev), FNT, FWD_SMEM, stream>>>(
       x, static_cast<const uint32_t*>(k1), b1, static_cast<const uint4*>(k2),
       b2, h, w, tap1, tap2);
   return (int)cudaGetLastError();
@@ -596,23 +663,32 @@ extern "C" int block1_fwd_setups(void) { return fwd_setups; }
 // launches.
 extern "C" int block1_bwd(const float* tap1, const float* tap2,
                           const float* g1, const float* g2, const void* k2r,
-                          const float* k1r, int h, int w, void* dy1,
+                          const void* k1r, int h, int w, void* dy1,
                           float* dx, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      block1_dy1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DY1_SMEM);
+  int dev = 0;
+  cudaError_t err = current_device(&dev);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH);
-  block1_dy1_kernel<<<grid, NT, DY1_SMEM, stream>>>(
-      tap1, tap2, g1, g2, static_cast<const uint4*>(k2r), h, w,
-      static_cast<uint4*>(dy1));
+  if (!bwd_ready[dev]) {
+    err = cudaFuncSetAttribute(block1_dy1_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               DY1_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    bwd_ready[dev] = true;
+    ++bwd_setups;
+  }
+  const int ntiles = tiles(h, w);
+  if (ntiles == 0) return 0;
+  block1_dy1_kernel<<<grid_size(ntiles, 2, dev), FNT, DY1_SMEM,
+                      stream>>>(tap1, tap2, g1, g2,
+                                static_cast<const uint4*>(k2r), h, w,
+                                static_cast<uint32_t*>(dy1));
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(
-      block1_dx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DX_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid_dx((w + DW - 1) / DW, (h + DH - 1) / DH);
-  block1_dx_kernel<<<grid_dx, NT, DX_SMEM, stream>>>(
-      static_cast<const uint32_t*>(dy1), reinterpret_cast<const float4*>(k1r),
-      h, w, dx);
+  block1_dx_kernel<<<grid_size(ntiles, DX_BLOCKS, dev), FNT, DX_SMEM,
+                     stream>>>(static_cast<const uint4*>(dy1),
+                               static_cast<const unsigned short*>(k1r), h, w,
+                               dx);
   return (int)cudaGetLastError();
 }
+
+extern "C" int block1_bwd_setups(void) { return bwd_setups; }

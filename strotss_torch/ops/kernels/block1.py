@@ -24,13 +24,14 @@ and design) and count the launches; on CPU tensors they compute the same
 with the plain versions below. Weights arrive as the port's OIHW tensors
 and are laid out for the kernels here.
 
-K3a computes both convolutions on the tensor cores (``mma.sync``, bf16
-operands, f32 sums) in persistent blocks that keep the conv2 kernel in
-shared memory. Its wrapper does no per-call weight work:
-``fwd_layouts`` builds the kernel's layouts, and ``cached_fwd_layouts``
-keeps them per weight tensor (the VGG weights are the same module buffers
-on every step) until a weight is replaced or edited in place. K3b still
-runs on the CUDA cores and re-lays its weights on every call.
+Both kernels compute their convolutions on the tensor cores
+(``mma.sync``, bf16 operands, f32 sums) in persistent blocks; K3a and
+K3b's dy1 kernel keep the 64x64 conv2 kernel in shared memory. The
+wrappers do no per-call weight work: ``fwd_layouts`` and ``bwd_layouts``
+build the kernels' layouts, and ``cached_fwd_layouts`` and
+``cached_bwd_layouts`` keep them per weight tensor (the VGG weights are
+the same module buffers on every step) until a weight is replaced or
+edited in place.
 """
 
 from __future__ import annotations
@@ -104,14 +105,26 @@ def fwd_layouts(k1, b1, k2, b2):
             b2.float().clone(memory_format=torch.contiguous_format))
 
 
-#: (id of k1, b1, k2, b2) -> (those tensors, their (device, _version)s,
-#: their layouts); the newest _LAYOUTS_KEPT entries
+def bwd_layouts(k1, k2):
+    """K3b's weight layouts from the OIHW weights, on their device. The
+    transposed convolutions run as plain ones: each kernel flipped in both
+    spatial axes with its channel axes swapped, [ky][kx][K][N] bf16 with K
+    the channel read and N the channel written. (k2r, k1r): k2r
+    (3, 3, 64, 64) [ky][kx][co][ci]; k1r (3, 3, 64, 8) [ky][kx][co][c], c
+    padded from 3 to 8 with zeros."""
+    k2r = k2.flip(2, 3).permute(2, 3, 0, 1).to(torch.bfloat16).contiguous()
+    k1r = F.pad(k1.flip(2, 3).permute(2, 3, 0, 1), (0, 5))
+    return k2r, k1r.to(torch.bfloat16).contiguous()
+
+
+#: (layout name, ids of the source tensors) -> (those tensors, their
+#: (device, _version)s, their layouts); the newest _LAYOUTS_KEPT entries
 _layouts: "OrderedDict[tuple, tuple]" = OrderedDict()
-_LAYOUTS_KEPT = 4
+_LAYOUTS_KEPT = 8
 
 
-def cached_fwd_layouts(k1, b1, k2, b2):
-    """``fwd_layouts`` of these weights, built once per weight tensor.
+def _cached(name, build_layouts, *src):
+    """``build_layouts(*src)``, built once per source tensor.
 
     The VGG weights are the same module buffers on every step, so a repeat
     call returns the same layout objects. The cache holds the source
@@ -119,19 +132,37 @@ def cached_fwd_layouts(k1, b1, k2, b2):
     serves only the same tensors at the same ``_version``, so an in-place
     edit of a weight rebuilds its layouts.
     """
-    src = (k1, b1, k2, b2)
-    key = tuple(map(id, src))
+    key = (name, *map(id, src))
     stamp = tuple((t.device, t._version) for t in src)
     hit = _layouts.get(key)
     if hit is not None and hit[1] == stamp:
         _layouts.move_to_end(key)
         return hit[2]
-    out = fwd_layouts(*src)
+    out = build_layouts(*src)
     _layouts[key] = (src, stamp, out)
     _layouts.move_to_end(key)
     while len(_layouts) > _LAYOUTS_KEPT:
         _layouts.popitem(last=False)
     return out
+
+
+def cached_fwd_layouts(k1, b1, k2, b2):
+    """``fwd_layouts`` of these weights, built once per weight tensor."""
+    return _cached("fwd", fwd_layouts, k1, b1, k2, b2)
+
+
+def cached_bwd_layouts(k1, k2):
+    """``bwd_layouts`` of these weights, built once per weight tensor."""
+    return _cached("bwd", bwd_layouts, k1, k2)
+
+
+def _launch(device: torch.device, *args) -> None:
+    """``build.launch(*args)`` with ``device`` current."""
+    if device.index == torch.cuda.current_device():
+        build.launch(*args)
+    else:
+        with torch.cuda.device(device):
+            build.launch(*args)
 
 
 def block1_fwd(x, k1, b1, k2, b2, mul_dtype=torch.bfloat16):
@@ -148,14 +179,9 @@ def block1_fwd(x, k1, b1, k2, b2, mul_dtype=torch.bfloat16):
     check_cuda_f32("b2", b2l, (64,))
     tap1 = torch.empty((h, w, 64), dtype=torch.float32, device=x.device)
     tap2 = torch.empty_like(tap1)
-    args = ("block1_fwd", x.data_ptr(), k1l.data_ptr(), b1l.data_ptr(),
-            k2l.data_ptr(), b2l.data_ptr(), h, w, tap1.data_ptr(),
-            tap2.data_ptr(), _stream(x))
-    if x.device.index == torch.cuda.current_device():
-        build.launch(*args)
-    else:
-        with torch.cuda.device(x.device):
-            build.launch(*args)
+    _launch(x.device, "block1_fwd", x.data_ptr(), k1l.data_ptr(),
+            b1l.data_ptr(), k2l.data_ptr(), b2l.data_ptr(), h, w,
+            tap1.data_ptr(), tap2.data_ptr(), _stream(x))
     block1_fwd.launches += 1
     return tap1, tap2
 
@@ -179,24 +205,24 @@ def block1_bwd(tap1, tap2, g1, g2, k1, k2, mul_dtype=torch.bfloat16):
         check_cuda_f32(name, t, (h, w, 64))
     check_cuda_f32("k1", k1, (64, 3, 3, 3))
     check_cuda_f32("k2", k2, (64, 64, 3, 3))
-    # the transposed convolutions as plain ones: kernels flipped in both
-    # spatial axes, channel axes swapped. k2r [ky][kx][co][ci] bf16;
-    # k1r [ky][kx][co][c] bf16-rounded float32, c padded to 4
-    k2r = k2.flip(2, 3).permute(2, 3, 0, 1).to(torch.bfloat16).contiguous()
-    k1r = F.pad(_r(k1.flip(2, 3).permute(2, 3, 0, 1), mul_dtype),
-                (0, 1)).contiguous()
+    k2r, k1r = cached_bwd_layouts(k1, k2)
     dy1 = torch.empty((h, w, 64), dtype=torch.bfloat16, device=tap1.device)
     dx = torch.empty((h, w, 3), dtype=torch.float32, device=tap1.device)
-    with torch.cuda.device(tap1.device):
-        build.launch("block1_bwd", tap1.data_ptr(), tap2.data_ptr(),
-                     g1.data_ptr(), g2.data_ptr(), k2r.data_ptr(),
-                     k1r.data_ptr(), h, w, dy1.data_ptr(), dx.data_ptr(),
-                     _stream(tap1))
+    _launch(tap1.device, "block1_bwd", tap1.data_ptr(), tap2.data_ptr(),
+            g1.data_ptr(), g2.data_ptr(), k2r.data_ptr(), k1r.data_ptr(), h,
+            w, dy1.data_ptr(), dx.data_ptr(), _stream(tap1))
     block1_bwd.launches += 1
     return dx
 
 
 block1_bwd.launches = 0
+
+
+def bwd_setups() -> int:
+    """How many times K3b's C entry has set its dy1 kernel's
+    shared-memory limit in this process: once per device, not once per
+    call."""
+    return build.library("block1").block1_bwd_setups()
 
 
 class Block1(torch.autograd.Function):

@@ -253,3 +253,88 @@ def test_cached_fwd_layouts_follow_a_new_tensor_or_an_inplace_edit(which):
     assert edited[which] is not fresh[which]
     assert torch.equal(edited[which], B.fwd_layouts(*w)[which])
     assert torch.equal(edited[which].float(), 2 * fresh[which].float())
+
+
+def test_bwd_layouts_are_the_oihw_weights_flipped_transposed_and_rounded():
+    k1, _, k2, _ = _oihw(8)
+    k2r, k1r = B.bwd_layouts(k1, k2)
+    assert k2r.dtype == k1r.dtype == torch.bfloat16
+    assert tuple(k2r.shape) == (3, 3, 64, 64)
+    assert tuple(k1r.shape) == (3, 3, 64, 8)
+    assert k2r.is_contiguous() and k1r.is_contiguous()
+    want2 = k2.to(torch.bfloat16).flip(2, 3).permute(2, 3, 0, 1)
+    assert torch.equal(k2r.view(torch.int16), want2.view(torch.int16))
+    want1 = torch.cat([k1.to(torch.bfloat16).flip(2, 3).permute(2, 3, 0, 1),
+                       torch.zeros(3, 3, 64, 5, dtype=torch.bfloat16)], 3)
+    assert torch.equal(k1r.view(torch.int16), want1.view(torch.int16))
+    k1n, k2n = k1.numpy(), k2.numpy()
+    # entry [ty][tx][K][N] is the OIHW weight at the mirrored tap
+    for ty, tx, co, ci in [(0, 0, 0, 0), (2, 1, 63, 5), (1, 2, 17, 40)]:
+        assert k2r[ty, tx, co, ci] == torch.tensor(
+            k2n[co, ci, 2 - ty, 2 - tx]).to(torch.bfloat16)
+    for ty, tx, co, c in [(0, 0, 0, 0), (2, 1, 63, 2), (1, 2, 17, 1)]:
+        assert k1r[ty, tx, co, c] == torch.tensor(
+            k1n[co, c, 2 - ty, 2 - tx]).to(torch.bfloat16)
+    assert not k1r[..., 3:].float().any()
+
+
+def _tap_conv(inp, lay):
+    """The 3x3 SAME convolution of inp (H, W, K) with lay (3, 3, K, N) as a
+    direct sum over shifted taps: out[p] = sum_t inp[p + t - 1] @ lay[t]."""
+    h, w, _ = inp.shape
+    pad = torch.nn.functional.pad(inp, (0, 0, 1, 1, 1, 1))
+    return sum(pad[ty:ty + h, tx:tx + w] @ lay[ty, tx]
+               for ty in range(3) for tx in range(3))
+
+
+@pytest.mark.parametrize("h,w", [(13, 11), (16, 8)])
+def test_bwd_layouts_compute_the_backward(h, w):
+    """K3b's arithmetic on its layouts, in float64: dy1 and dx as plain
+    tap sums over [tap][K][N] reproduce block1_bwd_plain."""
+    rng = np.random.default_rng(h * 10 + w)
+    tap1, tap2, g1, g2 = (torch.tensor(rng.standard_normal((h, w, 64)))
+                          for _ in range(4))
+    k1, _, k2, _ = _oihw(h + w)
+    k2r, k1r = (t.double() for t in B.bwd_layouts(k1, k2))
+
+    def r(t):
+        return t.to(torch.bfloat16).double()
+
+    m1 = (tap1 > 0).double()
+    dy1 = r(_tap_conv(r(g2 * (tap2 > 0)), k2r) * m1 + r(g1 * m1))
+    dx = _tap_conv(dy1, k1r)
+    assert not dx[..., 3:].any()
+    want = B.block1_bwd_plain(tap1, tap2, g1, g2, k1.double(), k2.double())
+    assert _rel_err(dx[..., :3], want) <= 1e-10
+
+
+def test_cached_bwd_layouts_returns_the_same_objects_for_the_same_weights(
+        monkeypatch):
+    builds = []
+    real = B.bwd_layouts
+    monkeypatch.setattr(B, "bwd_layouts",
+                        lambda *a: builds.append(1) or real(*a))
+    k1, _, k2, _ = _oihw(9)
+    first = B.cached_bwd_layouts(k1, k2)
+    again = B.cached_bwd_layouts(k1, k2)
+    assert builds == [1]
+    assert all(a is b for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("which", [0, 1])
+def test_cached_bwd_layouts_follow_a_new_tensor_or_an_inplace_edit(which):
+    k1, _, k2, _ = _oihw(10)
+    w = [k1, k2]
+    out = 1 - which  # k1's layout is k1r, the second of (k2r, k1r)
+    first = B.cached_bwd_layouts(*w)
+    # a new tensor with the same values: a new entry, equal layouts
+    w[which] = w[which].clone()
+    fresh = B.cached_bwd_layouts(*w)
+    assert fresh[out] is not first[out]
+    assert torch.equal(fresh[out].float(), first[out].float())
+    # an in-place edit bumps _version: the layouts are rebuilt
+    w[which].mul_(2)
+    edited = B.cached_bwd_layouts(*w)
+    assert edited[out] is not fresh[out]
+    assert torch.equal(edited[out], B.bwd_layouts(*w)[out])
+    assert torch.equal(edited[out].float(), 2 * fresh[out].float())

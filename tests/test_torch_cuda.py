@@ -139,6 +139,32 @@ def test_block1_fwd_repeat_call_does_no_setup(cuda_device, monkeypatch):
 
 
 @pytest.mark.cuda
+def test_block1_bwd_repeat_call_does_no_setup(cuda_device, monkeypatch):
+    """A repeat backward call with the same weights builds no layout and
+    sets no kernel attribute; an in-place edit of k2 is followed."""
+    torch.backends.cudnn.allow_tf32 = False
+    k1, b1, k2, b2 = _block1_weights(cuda_device)
+    k2 = k2.clone()
+    x = _rand(6, (40, 24, 3), cuda_device)
+    g1, g2 = _rand(7, (40, 24, 64), cuda_device), _rand(8, (40, 24, 64),
+                                                         cuda_device)
+    t1, t2 = block1.block1_fwd(x, k1, b1, k2, b2)
+    block1.block1_bwd(t1, t2, g1, g2, k1, k2)
+    setups = block1.bwd_setups()
+    builds = []
+    real = block1.bwd_layouts
+    monkeypatch.setattr(block1, "bwd_layouts",
+                        lambda *a: builds.append(1) or real(*a))
+    first = block1.block1_bwd(t1, t2, g1, g2, k1, k2)
+    assert builds == [] and block1.bwd_setups() == setups
+    k2.mul_(2)
+    dx = block1.block1_bwd(t1, t2, g1, g2, k1, k2)
+    assert builds == [1] and block1.bwd_setups() == setups
+    assert not torch.equal(dx, first)
+    assert _err(dx, block1.block1_bwd_plain(t1, t2, g1, g2, k1, k2)) <= 1e-3
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n,m,c,dist", [(300, 200, 35, "cosine"),
                                         (1000, 777, 64, "both"),
                                         (129, 65, 3, "l2")])
