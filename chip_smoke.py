@@ -6,7 +6,8 @@ Run from the repository root on a machine with one NVIDIA H100::
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``strotss_torch/csrc``, holds each kernel
-against its plain PyTorch version on the card (REMD minima, self-
+against its plain PyTorch version on the card (REMD minima on both of
+K1's routes: tensor cores for the features, CUDA cores for YUV; self-
 similarity forward and backward at N = 1024 and 32769, VGG block1 forward
 and backward at the 512 px content and style shapes, the 64 px content
 shape and a shape smaller than one forward tile, the Sinkhorn LSE pass
@@ -34,9 +35,9 @@ import time
 import numpy as np
 
 # fp32 peak of the CUDA cores, dense bf16 peak of the tensor cores and
-# memory rate, by SKU (NVIDIA data sheets); special-function results
-# (expf, sqrtf) at 16 per SM and clock against 256 fp32 operations, so
-# 1/16 of the fp32 rate
+# memory rate, by SKU (NVIDIA data sheets); dense TF32 at half the bf16
+# rate; special-function results (expf, sqrtf) at 16 per SM and clock
+# against 256 fp32 operations, so 1/16 of the fp32 rate
 _PEAKS = {
     "SXM": {"fp32": 67e12, "bf16": 989e12, "bytes": 3.35e12},
     "NVL": {"fp32": 60e12, "bf16": 835e12, "bytes": 3.9e12},
@@ -44,6 +45,7 @@ _PEAKS = {
 }
 for _rates in _PEAKS.values():
     _rates["sfu"] = _rates["fp32"] / 16
+    _rates["tf32"] = _rates["bf16"] / 2
 
 _REPLACES = {
     "remd_mins": "strotss_tpu/ops/kernels/remd.py:142",
@@ -217,6 +219,10 @@ def _rel(a, ref) -> float:
     return float(((a - ref).abs() / ref.abs().clamp(min=1e-30)).max())
 
 
+_K1_TILE_KERNELS = {"cuda_cores": "remd_tile_kernel",
+                    "tensor_cores": "remd_tc_kernel"}
+
+
 def check_remd(n, m, c, distance, seed, rates):
     """K1 against its plain version at one shape; returns measurements."""
     import torch
@@ -226,6 +232,7 @@ def check_remd(n, m, c, distance, seed, rates):
 
     x = _inputs(seed, (n, c), positive=(c == 3))
     y = _inputs(seed + 1, (m, c), positive=(c == 3))
+    route = remd.route(c)
     rmin, cmin, rarg, carg = remd.mins(x, y, distance)
     again = remd.mins(x, y, distance)
     check(all(torch.equal(a, b) for a, b in
@@ -282,9 +289,19 @@ def check_remd(n, m, c, distance, seed, rates):
           f"remd_mins {distance} C={c}: grad err {gerr} (vs float64 "
           f"{gerr64}, plain float32 vs float64 {gplain64})")
 
-    ms = time_ms(lambda: remd.mins(x, y, distance))
-    dev_ms = device_ms(lambda: remd.mins(x, y, distance),
-                       ("remd_tile_kernel", "remd_reduce_kernel"))
+    def call():
+        return remd.mins(x, y, distance)
+
+    ms = time_ms(call)
+    # the route's tile kernel and the reduction apart; the other route's
+    # tile kernel at the same shape, forced, for comparison
+    tile_ms = device_ms(call, (_K1_TILE_KERNELS[route],))
+    reduce_ms = device_ms(call, ("remd_reduce_kernel",))
+    dev_ms = (tile_ms + reduce_ms if isinstance(tile_ms, float)
+              and isinstance(reduce_ms, float) else "not measured")
+    other = next(r for r in remd.ROUTES if r != route)
+    other_ms = device_ms(lambda: remd.mins(x, y, distance, other),
+                         (_K1_TILE_KERNELS[other],))
     plain_ms = time_ms(lambda: remd.mins_plain(x, y, distance))
     library_ms = None
     if distance == "cosine":
@@ -301,15 +318,30 @@ def check_remd(n, m, c, distance, seed, rates):
     epi = {"cosine": 5, "l2": 7, "both": 11}[distance]
     flops = 2.0 * n * m * c + epi * n * m
     nbytes = 4.0 * (n + m) * c + 8.0 * (n + m)
-    b_ms, b_by = bound_ms(flops, nbytes, rates)
-    out = {"shape": [n, m, c], "distance": distance, "max_abs_err":
+    cores_ms, cores_by = bound_ms(flops, nbytes, rates)
+    if route == "tensor_cores":
+        # each product is three TF32 products (big.big, big.small,
+        # small.big) on the tensor cores
+        b_ms, b_by = bound_ms(3 * 2.0 * n * m * c, nbytes, rates, "tf32")
+    else:
+        b_ms, b_by = cores_ms, cores_by
+    out = {"shape": [n, m, c], "distance": distance, "route_taken": route,
+           "max_abs_err":
            float(max((rmin - p_rmin).abs().max(), (cmin - p_cmin).abs().max())),
            "max_rel_err": err, "rel_err_vs_f64": err64,
            "plain_rel_err_vs_f64": plain_err, "argmin_flips": n_flip,
            "grad_err": gerr, "grad_err_vs_f64": gerr64,
            "plain_grad_err_vs_f64": gplain64,
-           "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-           "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
+           "ms": ms, "device_ms": dev_ms,
+           # the wrapper's host share: checks, scratch lookup, the outputs'
+           # allocation and the launch
+           "host_ms": (ms - dev_ms if isinstance(dev_ms, float)
+                       else "not measured"),
+           "tile_device_ms": tile_ms, "reduce_device_ms": reduce_ms,
+           "other_route": other, "other_route_tile_device_ms": other_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": b_ms, "bound_by": b_by,
+           "bound_fp32_cores_ms": cores_ms}
     emit({"phase": "kernel", "name": "remd_mins", **out})
     return out
 
@@ -690,6 +722,10 @@ def phase_kernels(rates):
     remd_main = check_remd(1024, 1024, 2179, "cosine", 1, rates)
     remd_yuv = check_remd(1024, 1024, 3, "both", 3, rates)
     check_remd(1000, 777, 2179, "both", 5, rates)
+    check(remd_main["route_taken"] == "tensor_cores"
+          and remd_yuv["route_taken"] == "cuda_cores",
+          f"remd_mins routes: {remd_main['route_taken']} at C = 2179, "
+          f"{remd_yuv['route_taken']} at C = 3")
     ss_main = check_selfsim(1024, 2179, 7, rates)
     check_selfsim(1000, 2179, 9, rates)
     # the 512 px content and style scales, and the smallest content scale
@@ -1071,7 +1107,8 @@ def phase_profile(vgg_params):
             else "not measured",
             "scale_seconds": [s["seconds"] for s in info["scales"]],
             "rows": rows}
-    ours = {"remd_tile_kernel", "remd_reduce_kernel", "selfsim_fwd_kernel",
+    ours = {"remd_tc_kernel", "remd_tile_kernel", "remd_reduce_kernel",
+            "selfsim_fwd_kernel",
             "selfsim_fwd_reduce_kernel", "selfsim_gmat_kernel",
             "selfsim_apply_kernel", "block1_fwd_kernel", "block1_dy1_kernel",
             "block1_dx_kernel"}
@@ -1088,13 +1125,17 @@ def phase_profile(vgg_params):
 
 
 _TIMES = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")
+#: K1's own fields in the kernels line, beside the common ones
+_K1_FIELDS = ("route_taken", "host_ms", "tile_device_ms", "reduce_device_ms",
+              "bound_fp32_cores_ms")
 
 
 def _with_yuv(main, yuv):
     """The feature term's row, with the YUV term's times beside it."""
     entry = dict(main, max_abs_err=max(main["max_abs_err"],
                                        yuv["max_abs_err"]))
-    entry["yuv_both_c3"] = {k: yuv[k] for k in _TIMES}
+    entry["yuv_both_c3"] = {k: yuv[k] for k in _TIMES + _K1_FIELDS
+                            if k in yuv}
     return entry
 
 
@@ -1118,7 +1159,7 @@ def kernels_line(meas, launches):
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
             "device_ms": m["device_ms"],
             **{k: v for k, v in m.items() if k in ("yuv_both_c3",
-                                                    "n_32769")},
+                                                    "n_32769") + _K1_FIELDS},
         })
     return {"kernels": out}
 

@@ -4,29 +4,98 @@
 // Replaces the Pallas kernel strotss_tpu/ops/kernels/remd.py
 // (`_mins_kernel` with `_dist_tile`, called from `_mins_pallas_call`).
 // For x (N, C) and y (M, C) it returns the row minima and column minima of
-// the cosine, L2 or 'both' distance, each with its first argmin.
+// the cosine, L2 or 'both' distance, each with its first argmin. Two routes,
+// chosen by the C entry from C alone (REMD_TC_MIN_C below); both write
+// per-tile partial minima that `remd_reduce_kernel` folds in a fixed order.
+// There are no atomics, so every result is the same bit for bit on every
+// run, and ties keep the smaller index (the first argmin).
 //
-// Bound on an H100 SXM (67 TFLOP/s fp32 on CUDA cores, 3.35 TB/s): the main
-// path's cosine call (N = M = 1024, C = 2179) does 2*N*M*C = 4.57 GFLOP of
-// products, 0.068 ms, and must read (N + M)*C*4 B = 17.8 MB, 0.0053 ms. It
-// is bound by operations. The 'both' call on YUV (C = 3) does 6.3 MFLOP of
-// products plus about 20 operations per pair for the two distances and the
-// minima; it is bound by neither and costs what a launch costs.
+// Bound on an H100 SXM (3.35 TB/s; 495 TFLOP/s TF32 dense on the tensor
+// cores; 67 TFLOP/s fp32 on the CUDA cores): the main path's cosine call
+// (N = M = 1024, C = 2179) must read (N + M) * C * 4 B = 17.8 MB, 0.0053 ms,
+// and does 2 * N * M * C = 4.57 GFLOP of products. On the tensor-core route
+// each product is three TF32 products, 13.7 GFLOP, 0.0277 ms; on the CUDA
+// cores it would be 0.0683 ms. It is bound by operations. The 'both' call on
+// YUV (C = 3) does 6.3 MFLOP of products plus about 20 operations per pair
+// for the two distances and the minima; it is bound by neither and costs
+// what a launch costs.
 //
-// Design. The Pallas kernel carries its minima across a grid that runs in
-// order on one core. CUDA blocks run at once, so each block takes one
-// 64 x 64 tile (a grid of 16 x 16 = 256 blocks at N = M = 1024, enough for
-// the 132 SMs): it forms the tile's dot products with fp32 FMAs from 64 x 32
-// slices of x and y in shared memory, turns them into distances, and writes
-// the tile's row minima and column minima with their argmins to partial
-// buffers of shape (M/64, N) and (N/64, M). A second, small kernel reduces
-// those buffers in a fixed order. There are no atomics, so the result is
-// the same bit for bit on every run, and ties keep the smaller index (the
-// first argmin). Row norms are summed inside the tile loop, from the same
-// shared-memory slices, so no separate pass reads x or y. Each block reads
-// its 64 rows of x and y once from L2; the 16-fold reuse of each row across
-// blocks comes from the 50 MB L2, which holds both inputs.
+// Tensor-core route (`remd_tc_kernel`, C >= REMD_TC_MIN_C; the feature term).
+// - Precision. The JAX kernel's products are Precision.HIGHEST, and the
+//   minima are held to rtol 1e-5 against float32, so plain TF32 (10
+//   mantissa bits) cannot serve. Each f32 value v is split where it is read
+//   into registers: big = v rounded to TF32, small = v - big (exact) rounded
+//   to TF32, both to nearest with ties away from zero, the bits of
+//   cvt.rna.tf32.f32 computed on the integer pipe (`tf32_rna`). x.y is the
+//   sum of big.big + big.small + small.big ("3xTF32"; the dropped
+//   small.small term is ~2^-22 of a product), three
+//   `mma.sync.m16n8k8.row.col.f32.tf32.tf32.f32` a fragment pair. TF32 was
+//   chosen over the bf16 three-way split because it needs three products,
+//   not six, for the same accuracy. Per k8 step a thread splits 8 A and 8 B
+//   values (2 integer operations and 1 fsub each, twice) against its warp's
+//   24 mma. The tensor cores' own f32 sums run over one 32-channel stage
+//   only: the stage's sums are then added into f32 registers on the CUDA
+//   cores. Summed over all of C on the tensor cores, the minima were 14x
+//   further from the plain version (1.8e-6 against 1.3e-7 at 1024 x 1024 x
+//   2179), for no gain in time.
+// - Tiles. A block of 256 threads (8 warps as 4 x 2, each 32 x 32) owns a
+//   128 x 64 output tile; at N = M = 1024 that is 128 blocks, one wave on
+//   132 SMs. Each block reads its 192 rows of x and y once from L2,
+//   1.67 MB at C = 2179, 214 MB for the whole call (64 x 64 tiles would read
+//   290 MB).
+// - Loads. 32-channel slices of the 192 rows stream through a ring of four
+//   stages in shared memory (110.6 KB of dynamic shared memory, its limit
+//   set once per device) by 16-byte `cp.async`, zero-filled past C and past
+//   the last row or column. At C = 2179 a row starts 4-byte aligned only,
+//   so each row's slice comes as the 16-byte aligned window that holds it,
+//   channel k at column s + k, s = (row * C) % 4 (a ninth chunk where
+//   s > 0). Rows 36 floats apart, grouped in shared memory by row % 4 (the
+//   rows of one misalignment; the fragment-to-row map follows), keep every
+//   fragment read on 32 distinct banks.
+// - Row norms. |x|^2 and |y|^2 are summed in f32 from the f32 values in the
+//   same fragment reads, then across the lane quad.
+// - Epilogue in registers. The distances (the floors of tile_dist in
+//   tile.cuh) are formed in the accumulator fragments; row minima with
+//   their argmins go through the lane quad by shuffles, column minima
+//   through the 8 lane groups, then across the warps through shared memory.
+// - Measured (H100 80GB HBM3, 700 W; PERF.md, tools/k1_ablation.py): about
+//   0.117 ms at 1024 x 1024 x 2179, 4.2x the bound above, 2.0x faster than
+//   the CUDA-core route at the same shape. What holds it: `mma.sync` on TF32
+//   reaches under half of the dense TF32 rate (the two extra products cost
+//   0.043 ms), and the loads, fragment reads and split (0.073 ms with no
+//   mma at all) overlap the mma little; splitting with cvt instead of the
+//   integer pipe costs 0.014 ms more, the misaligned rows' ninth chunk
+//   0.006 ms.
+//
+// CUDA-core route (`remd_tile_kernel`, C < REMD_TC_MIN_C; the YUV term,
+// C = 3): each block takes one 64 x 64 tile, forms its dot products with
+// fp32 FMAs from 64 x 32 slices of x and y in shared memory (`tile_dot`,
+// shared with selfsim.cu), turns them into distances (`tile_dist`, shared
+// with sinkhorn.cu), and writes the tile's row and column minima with their
+// argmins. At C = 3 the tensor cores save nothing, and 'both' there is
+// ill-conditioned in f32, so it keeps plain f32 products.
+#include <stdint.h>
+
 #include "tile.cuh"
+
+// C from which the entry point takes the tensor-core route. From the two
+// routes' device times at 1024 x 1024 (tools/k1_routes.py on an H100 80GB
+// HBM3 at 700 W; PERF.md) the tensor cores are faster from C = 8 up, by
+// about 1 us below C = 48; below 32 their minima moved up to 6.8e-6 from
+// the plain float32 version (C = 8), against ~1e-6 from 32 up.
+#define REMD_TC_MIN_C 32
+
+#define TC_BM 128  // x rows of a block's tile
+#define TC_BN 64   // y rows (columns) of a block's tile: TILE, as the partials
+#define TC_KC 32   // channels a stage
+#define TC_LD 36   // floats between rows in shared memory
+#define TC_STAGES 4
+#define TC_THREADS 256
+#define TC_STAGE_FLOATS ((TC_BM + TC_BN) * TC_LD)
+#define TC_SMEM_BYTES (TC_STAGES * TC_STAGE_FLOATS * 4)
+#define MAX_DEVICES 64
+
+static_assert(TC_BN == TILE, "both routes share the row partials' layout");
 
 __global__ void __launch_bounds__(NTHREADS)
 remd_tile_kernel(const float* __restrict__ x, const float* __restrict__ y,
@@ -115,6 +184,463 @@ remd_tile_kernel(const float* __restrict__ x, const float* __restrict__ y,
   }
 }
 
+// ---- tensor-core route ---------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// cp.async of 16 bytes, of which the first `src_bytes` are read and the
+// rest zero-filled.
+__device__ __forceinline__ void cp_async16z(float* dst, const float* src,
+                                            int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// all but the newest `pending` groups have landed
+template <int pending>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(pending) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// v rounded to TF32 (10 mantissa bits), nearest, ties away from zero; the
+// low 13 bits of the result are 0. For finite v these are the bits of
+// cvt.rna.tf32.f32, computed on the integer pipe: conversions issue 16
+// results a clock per SM, and cvt made the whole kernel ~12% slower
+// (tools/k1_ablation.py, `cvt_rounding`). ops/kernels/remd.py `tf32_round`
+// is the same rounding in Python.
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void tf32_split(float v, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32_rna(v);
+  small = tf32_rna(v - __uint_as_float(big));
+}
+
+// c += a (16 x 8, row-major) * b (8 x 8, column-major); TF32 in, f32 sums
+// (`mma_tf32_0`: c = a * b).
+// Fragments (PTX ISA, "Matrix Fragments for mma.m16n8k8", .tf32), lane
+// 4g + t (ops/kernels/remd.py `frag_a`, `frag_b`, `frag_c`):
+//   a[i]: row g + 8 (i & 1), column t + 4 (i >> 1);
+//   b[i]: row t + 4 i, column g;
+//   c[i]: row g + 8 (i >> 1), column 2t + (i & 1).
+__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4],
+                                         const uint32_t b[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_tf32_0(float c[4], const uint32_t a[4],
+                                           const uint32_t b[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "f"(0.f));
+}
+
+// Shared-memory row of tile row r (the x rows 0..TC_BM-1, then the y
+// rows): in each 32-row slab the rows that share r % 4 are 8 consecutive
+// rows. Rows that share r % 4 share their misalignment in device memory,
+// (r * C) % 4 floats, and so the column offset of their channels below.
+__device__ __forceinline__ int tc_smem_row(int r) {
+  return (r & ~31) | ((r & 3) << 3) | ((r & 31) >> 2);
+}
+
+// Where a thread's share of each stage comes from; the same rows and
+// chunks in every stage, so the pointers and checks are made once. A row's
+// TC_KC channels of a stage come as the 16-byte aligned window of chunks
+// that holds them, channel k at column s + k with s = (row * C) % 4 (x and
+// y are 16-byte aligned): thread tid copies chunk tid % 8 of the rows
+// tid / 8 + 32 q and, for tid < TC_BM + TC_BN where s > 0, chunk 8 of row
+// tid.
+struct TcLoader {
+  const float* xp;  // chunk tid % 8 of x row row0 + tid / 8
+  const float* yp;  // the same in y
+  const float* p8;  // chunk 8 of row tid (x or y)
+  const float* x;   // a valid address, for the copies that read nothing
+  size_t slab_c;    // 32 rows of C channels
+  int dst, dst8;    // the chunks' offsets in a stage
+  int ch, ch8;      // their first channels (negative: the row before's)
+  int x_ok, y_ok, ok8;  // rows inside the matrix: x and y counts, chunk 8
+};
+
+__device__ __forceinline__ TcLoader tc_loader(const float* x, int row0,
+                                              int n, const float* y,
+                                              int col0, int m, int c) {
+  TcLoader L;
+  const int tid = threadIdx.x;
+  const int lr = tid / 8;
+  // row0 and col0 are multiples of 32, so a row's misalignment is that of
+  // its index in the tile
+  const int s = (int)(((unsigned)lr * (unsigned)c) & 3u);
+  L.ch = 4 * (tid % 8) - s;
+  L.dst = tc_smem_row(lr) * TC_LD + 4 * (tid % 8);
+  L.xp = x + (size_t)(row0 + lr) * c + L.ch;
+  L.yp = y + (size_t)(col0 + lr) * c + L.ch;
+  L.x = x;
+  L.slab_c = (size_t)32 * c;
+  const int xl = n - row0 - lr, yl = m - col0 - lr;
+  L.x_ok = xl <= 0 ? 0 : (xl + 31) / 32;
+  L.y_ok = yl <= 0 ? 0 : (yl + 31) / 32;
+  const int s8 = (int)(((unsigned)tid * (unsigned)c) & 3u);
+  L.ch8 = TC_KC - s8;
+  L.dst8 = tc_smem_row(tid) * TC_LD + TC_KC;
+  const bool is_x = tid < TC_BM;
+  const int gr = is_x ? row0 + tid : col0 + tid - TC_BM;
+  L.ok8 = s8 > 0 && tid < TC_BM + TC_BN && gr < (is_x ? n : m);
+  L.p8 = L.ok8 ? (is_x ? x : y) + (size_t)gr * c + L.ch8 : x;
+  return L;
+}
+
+// Bytes of a 16-byte chunk that lie inside the row: those of channels
+// ch..ch+3 below c (the chunk that holds channel c - 1 is zero-filled past
+// it, and chunks past it read nothing).
+__device__ __forceinline__ int tc_chunk_bytes(int c, int ch) {
+  const int rem = c - ch;
+  return rem >= 4 ? 16 : (rem > 0 ? 4 * rem : 0);
+}
+
+// Channels [k0, k0 + TC_KC) of the tile's x rows and y rows into `st`,
+// zero past C and past the last row or column.
+__device__ __forceinline__ void tc_load_stage(float* st, const TcLoader& L,
+                                              int k0, int c) {
+  const int bytes = tc_chunk_bytes(c, k0 + L.ch);
+#pragma unroll
+  for (int q = 0; q < TC_BM / 32; ++q) {
+    const bool ok = q < L.x_ok && bytes > 0;
+    cp_async16z(st + L.dst + q * 32 * TC_LD,
+                ok ? L.xp + q * L.slab_c + k0 : L.x, ok ? bytes : 0);
+  }
+#pragma unroll
+  for (int q = 0; q < TC_BN / 32; ++q) {
+    const bool ok = q < L.y_ok && bytes > 0;
+    cp_async16z(st + L.dst + (TC_BM + q * 32) * TC_LD,
+                ok ? L.yp + q * L.slab_c + k0 : L.x, ok ? bytes : 0);
+  }
+  if (L.ok8) {
+    const int bytes8 = tc_chunk_bytes(c, k0 + L.ch8);
+    cp_async16z(st + L.dst8, bytes8 > 0 ? L.p8 + k0 : L.x, bytes8);
+  }
+}
+
+// The distance of one pair from its dot product, the squared norms and
+// their floored reciprocal square roots: tile_dist's arithmetic for one
+// element.
+__device__ __forceinline__ float pair_dist(float dot, float xs, float ys,
+                                           float rx, float ry, float inv_c,
+                                           int dist) {
+  float v = 0.f;
+  if (dist != DIST_L2) v = 1.0f - (dot * rx) * ry;
+  if (dist != DIST_COS) {
+    const float msq = xs + ys - 2.0f * dot;
+    v += sqrtf(fmaxf(msq, 1e-6f) * inv_c);
+  }
+  return v;
+}
+
+// Warp (wm, wn) of a block owns tile rows wm * 32 + 4 g + j and tile
+// columns wn * 32 + 4 g + j, j = 0..3, g = 0..7: A fragment mb holds the
+// rows with j = 2 mb (its rows 0..7) and j = 2 mb + 1 (rows 8..15), B
+// fragment nb the columns with j = nb (ops/kernels/remd.py `tc_tile_rc`).
+// So the 8 rows of one fragment read share r % 4, their shared-memory rows
+// are consecutive and their columns start at the same offset: 32 lanes,
+// 32 banks; that offset is the rows' misalignment, (j * C) % 4.
+
+// One k8 step's A (2 x 16 x 8) and B (4 x 8 x 8) fragments of a warp, split.
+struct TcFrag {
+  uint32_t a_big[2][4], a_small[2][4], b_big[4][2], b_small[4][2];
+};
+
+// Reads a warp's fragments of k8 step kk of stage `st` (`a_off`, `b_off`:
+// the thread's offsets of its A rows j and B columns j, channel t),
+// splits them, and adds their squares to the row norms xs, ys.
+__device__ __forceinline__ void tc_read_split(const float* st, int kk,
+                                              const int a_off[4],
+                                              const int b_off[4], TcFrag& f,
+                                              float xs[2][2], float ys[4]) {
+#pragma unroll
+  for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float v = st[a_off[2 * mb + (i & 1)] + kk + (i >> 1) * 4];
+      tf32_split(v, f.a_big[mb][i], f.a_small[mb][i]);
+      xs[mb][i & 1] = fmaf(v, v, xs[mb][i & 1]);
+    }
+#pragma unroll
+  for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float v = st[b_off[nb] + kk + i * 4];
+      tf32_split(v, f.b_big[nb][i], f.b_small[nb][i]);
+      ys[nb] = fmaf(v, v, ys[nb]);
+    }
+}
+
+// part (+)= the three TF32 products of one k8 step; `first` starts the sums
+// from 0.
+__device__ __forceinline__ void tc_mma(float part[2][4][4], const TcFrag& f,
+                                       bool first) {
+#pragma unroll
+  for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb) {
+      if (first)
+        mma_tf32_0(part[mb][nb], f.a_big[mb], f.b_small[nb]);
+      else
+        mma_tf32(part[mb][nb], f.a_big[mb], f.b_small[nb]);
+      mma_tf32(part[mb][nb], f.a_small[mb], f.b_big[nb]);
+      mma_tf32(part[mb][nb], f.a_big[mb], f.b_big[nb]);
+    }
+}
+
+// One TC_BM x TC_BN tile of the distance matrix per block: its row minima
+// (over the tile's columns) into rowpart[blockIdx.x], its column minima
+// into colpart[blockIdx.y].
+__global__ void __launch_bounds__(TC_THREADS, 1)
+remd_tc_kernel(const float* __restrict__ x, const float* __restrict__ y,
+               int n, int m, int c, int dist,
+               float* __restrict__ rowpart_v, int* __restrict__ rowpart_i,
+               float* __restrict__ colpart_v, int* __restrict__ colpart_i) {
+  extern __shared__ __align__(16) float smem[];
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = warp >> 1;
+  const int wn = warp & 1;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int col0 = blockIdx.x * TC_BN;
+  const int row0 = blockIdx.y * TC_BM;
+
+  int a_off[4], b_off[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int sh = (int)(((unsigned)j * (unsigned)c) & 3u);
+    a_off[j] = (wm * 32 + j * 8 + g) * TC_LD + sh + t;
+    b_off[j] = (TC_BM + wn * 32 + j * 8 + g) * TC_LD + sh + t;
+  }
+
+  float acc[2][4][4], part[2][4][4];
+#pragma unroll
+  for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mb][nb][i] = 0.f;
+  float xs[2][2] = {{0.f, 0.f}, {0.f, 0.f}};  // rows j = 2 mb + h
+  float ys[4] = {0.f, 0.f, 0.f, 0.f};         // columns j = nb
+
+  const int nst = (c + TC_KC - 1) / TC_KC;
+  const TcLoader ld = tc_loader(x, row0, n, y, col0, m, c);
+#pragma unroll
+  for (int s = 0; s < TC_STAGES - 1; ++s) {
+    if (s < nst)
+      tc_load_stage(smem + s * TC_STAGE_FLOATS, ld, s * TC_KC, c);
+    cp_async_commit();
+  }
+
+  for (int s = 0; s < nst; ++s) {
+    // stage s has landed for every thread, and every warp is done with
+    // stage s - 1, whose buffer the load of stage s + TC_STAGES - 1 takes
+    cp_async_wait_group<TC_STAGES - 2>();
+    __syncthreads();
+    if (s + TC_STAGES - 1 < nst)
+      tc_load_stage(smem + ((s + TC_STAGES - 1) % TC_STAGES) * TC_STAGE_FLOATS,
+                    ld, (s + TC_STAGES - 1) * TC_KC, c);
+    cp_async_commit();
+
+    const float* st = smem + (s % TC_STAGES) * TC_STAGE_FLOATS;
+#pragma unroll
+    for (int kk = 0; kk < TC_KC; kk += 8) {
+      TcFrag f;
+      tc_read_split(st, kk, a_off, b_off, f, xs, ys);
+      tc_mma(part, f, kk == 0);
+    }
+#pragma unroll
+    for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mb][nb][i] += part[mb][nb][i];
+  }
+  cp_async_wait_all();
+  __syncthreads();  // the stages' memory now holds the epilogue's tables
+
+  float* xsq = smem;                          // [TC_BM]
+  float* ysq = xsq + TC_BM;                   // [TC_BN]
+  float* rv = ysq + TC_BN;                    // [2][TC_BM] by wn
+  int* ri = reinterpret_cast<int*>(rv + 2 * TC_BM);
+  float* cv = reinterpret_cast<float*>(ri + 2 * TC_BM);  // [TC_BM/32][TC_BN]
+  int* ci = reinterpret_cast<int*>(cv + (TC_BM / 32) * TC_BN);
+
+  // squared norms: the lane quad holds channels t and t + 4 of each k8 step
+  // (every warp sums them; the first column's and first row's write them)
+#pragma unroll
+  for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v = xs[mb][h];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      if (wn == 0 && t == 0) xsq[wm * 32 + 4 * g + 2 * mb + h] = v;
+    }
+#pragma unroll
+  for (int nb = 0; nb < 4; ++nb) {
+    float v = ys[nb];
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    v += __shfl_xor_sync(0xffffffffu, v, 2);
+    if (wm == 0 && t == 0) ysq[wn * 32 + 4 * g + nb] = v;
+  }
+  __syncthreads();
+
+  // distances in place of the dot products: acc[mb][nb][2 h + j] is tile
+  // row wm * 32 + 4 g + 2 mb + h, tile column wn * 32 + 4 (2 t + j) + nb
+  const float inv_c = 1.0f / (float)c;
+  float xv[2][2], rx[2][2], yv[4][2], ry[4][2];
+#pragma unroll
+  for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      xv[mb][h] = xsq[wm * 32 + 4 * g + 2 * mb + h];
+      rx[mb][h] = 1.0f / sqrtf(fmaxf(xv[mb][h], 1e-12f));
+    }
+#pragma unroll
+  for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      yv[nb][j] = ysq[wn * 32 + 4 * (2 * t + j) + nb];
+      ry[nb][j] = 1.0f / sqrtf(fmaxf(yv[nb][j], 1e-12f));
+    }
+#pragma unroll
+  for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int h = i >> 1;
+        const int j = i & 1;
+        acc[mb][nb][i] = pair_dist(acc[mb][nb][i], xv[mb][h], yv[nb][j],
+                                   rx[mb][h], ry[nb][j], inv_c, dist);
+      }
+
+  // row minima: 8 columns a thread, then the lane quad (32 columns)
+#pragma unroll
+  for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float bv = BIG_F;
+      int bi = 0x7fffffff;
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int col = col0 + wn * 32 + 4 * (2 * t + j) + nb;
+          const float d = acc[mb][nb][2 * h + j];
+          if (col < m && better(d, col, bv, bi)) {
+            bv = d;
+            bi = col;
+          }
+        }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
+        const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
+        if (better(ov, oi, bv, bi)) {
+          bv = ov;
+          bi = oi;
+        }
+      }
+      if (t == 0) {
+        const int r = wm * 32 + 4 * g + 2 * mb + h;
+        rv[wn * TC_BM + r] = bv;
+        ri[wn * TC_BM + r] = bi;
+      }
+    }
+
+  // column minima: 4 rows a thread, then the 8 lane groups (32 rows)
+#pragma unroll
+  for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float bv = BIG_F;
+      int bi = 0x7fffffff;
+#pragma unroll
+      for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = row0 + wm * 32 + 4 * g + 2 * mb + h;
+          const float d = acc[mb][nb][2 * h + j];
+          if (row < n && better(d, row, bv, bi)) {
+            bv = d;
+            bi = row;
+          }
+        }
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
+        const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
+        if (better(ov, oi, bv, bi)) {
+          bv = ov;
+          bi = oi;
+        }
+      }
+      if (g == 0) {
+        const int col = wn * 32 + 4 * (2 * t + j) + nb;
+        cv[wm * TC_BN + col] = bv;
+        ci[wm * TC_BN + col] = bi;
+      }
+    }
+  __syncthreads();
+
+  // across the warps: 2 column halves for a row, 4 row quarters for a column
+  if (tid < TC_BM) {
+    float bv = rv[tid];
+    int bi = ri[tid];
+    if (better(rv[TC_BM + tid], ri[TC_BM + tid], bv, bi)) {
+      bv = rv[TC_BM + tid];
+      bi = ri[TC_BM + tid];
+    }
+    const int row = row0 + tid;
+    if (row < n) {
+      rowpart_v[(size_t)blockIdx.x * n + row] = bv;
+      rowpart_i[(size_t)blockIdx.x * n + row] = bi;
+    }
+  } else if (tid < TC_BM + TC_BN) {
+    const int j = tid - TC_BM;
+    float bv = cv[j];
+    int bi = ci[j];
+#pragma unroll
+    for (int q = 1; q < TC_BM / 32; ++q) {
+      if (better(cv[q * TC_BN + j], ci[q * TC_BN + j], bv, bi)) {
+        bv = cv[q * TC_BN + j];
+        bi = ci[q * TC_BN + j];
+      }
+    }
+    const int col = col0 + j;
+    if (col < m) {
+      colpart_v[(size_t)blockIdx.y * m + col] = bv;
+      colpart_i[(size_t)blockIdx.y * m + col] = bi;
+    }
+  }
+}
+
+// ---- both routes -----------------------------------------------------------
+
 // One thread per row (g < n) and per column (g >= n): folds the per-tile
 // partial minima in tile order.
 __global__ void remd_reduce_kernel(
@@ -154,17 +680,61 @@ __global__ void remd_reduce_kernel(
   }
 }
 
-// Scratch: rowpart_{v,i} hold ceil(m/64)*n entries, colpart_{v,i}
-// ceil(n/64)*m. Returns cudaGetLastError() after both launches.
+static bool tc_ready[MAX_DEVICES];
+static int tc_setups = 0;
+
+// Lets remd_tc_kernel use TC_SMEM_BYTES of shared memory on the current
+// device: once per device, not once per call.
+static cudaError_t tc_setup() {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (!tc_ready[dev]) {
+    err = cudaFuncSetAttribute(remd_tc_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               TC_SMEM_BYTES);
+    if (err != cudaSuccess) return err;
+    tc_ready[dev] = true;
+    ++tc_setups;
+  }
+  return cudaSuccess;
+}
+
+extern "C" int remd_tc_setups(void) { return tc_setups; }
+
+// The route the entry point takes for c channels: 1 tensor cores, 0 CUDA
+// cores.
+extern "C" int remd_route(int c) { return c >= REMD_TC_MIN_C ? 1 : 0; }
+
+extern "C" int remd_tc_min_c(void) { return REMD_TC_MIN_C; }
+
+// `route` -1 takes remd_route(c); 0 or 1 forces that route (measurements
+// and tests). The tensor-core route needs x and y 16-byte aligned. Scratch: rowpart_{v,i} hold ceil(m/64)*n entries,
+// colpart_{v,i} ceil(n/64)*m, enough for either route. Returns
+// cudaGetLastError() after both launches.
 extern "C" int remd_mins(const float* x, const float* y, int n, int m, int c,
-                         int dist, float* rowpart_v, int* rowpart_i,
-                         float* colpart_v, int* colpart_i, float* rowmin,
-                         int* rowarg, float* colmin, int* colarg,
-                         cudaStream_t stream) {
+                         int dist, int route, float* rowpart_v,
+                         int* rowpart_i, float* colpart_v, int* colpart_i,
+                         float* rowmin, int* rowarg, float* colmin,
+                         int* colarg, cudaStream_t stream) {
+  if (route < 0) route = remd_route(c);
+  if (route == 1 && (reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+                     reinterpret_cast<uintptr_t>(y) % 16 != 0))
+    return (int)cudaErrorMisalignedAddress;
   const int ntm = (m + TILE - 1) / TILE;
-  const int ntn = (n + TILE - 1) / TILE;
-  remd_tile_kernel<<<dim3(ntm, ntn), NTHREADS, 0, stream>>>(
-      x, y, n, m, c, dist, rowpart_v, rowpart_i, colpart_v, colpart_i);
+  int ntn;
+  if (route == 1) {
+    cudaError_t err = tc_setup();
+    if (err != cudaSuccess) return (int)err;
+    ntn = (n + TC_BM - 1) / TC_BM;
+    remd_tc_kernel<<<dim3(ntm, ntn), TC_THREADS, TC_SMEM_BYTES, stream>>>(
+        x, y, n, m, c, dist, rowpart_v, rowpart_i, colpart_v, colpart_i);
+  } else {
+    ntn = (n + TILE - 1) / TILE;
+    remd_tile_kernel<<<dim3(ntm, ntn), NTHREADS, 0, stream>>>(
+        x, y, n, m, c, dist, rowpart_v, rowpart_i, colpart_v, colpart_i);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int threads = 256;

@@ -43,7 +43,11 @@ import torch.nn.functional as F
 from torch.nn.grad import conv2d_input
 
 from strotss_torch.ops.kernels import build
-from strotss_torch.ops.kernels.common import check_cuda_f32, resolve_impl
+from strotss_torch.ops.kernels.common import (
+    check_cuda_f32,
+    launch_on,
+    resolve_impl,
+)
 
 
 def _r(t: torch.Tensor, mul_dtype: torch.dtype) -> torch.Tensor:
@@ -156,15 +160,6 @@ def cached_bwd_layouts(k1, k2):
     return _cached("bwd", bwd_layouts, k1, k2)
 
 
-def _launch(device: torch.device, *args) -> None:
-    """``build.launch(*args)`` with ``device`` current."""
-    if device.index == torch.cuda.current_device():
-        build.launch(*args)
-    else:
-        with torch.cuda.device(device):
-            build.launch(*args)
-
-
 def block1_fwd(x, k1, b1, k2, b2, mul_dtype=torch.bfloat16):
     """(tap1, tap2): kernel K3a on CUDA tensors."""
     if not x.is_cuda:
@@ -179,9 +174,9 @@ def block1_fwd(x, k1, b1, k2, b2, mul_dtype=torch.bfloat16):
     check_cuda_f32("b2", b2l, (64,))
     tap1 = torch.empty((h, w, 64), dtype=torch.float32, device=x.device)
     tap2 = torch.empty_like(tap1)
-    _launch(x.device, "block1_fwd", x.data_ptr(), k1l.data_ptr(),
-            b1l.data_ptr(), k2l.data_ptr(), b2l.data_ptr(), h, w,
-            tap1.data_ptr(), tap2.data_ptr(), _stream(x))
+    launch_on(x.device, "block1_fwd", x.data_ptr(), k1l.data_ptr(),
+              b1l.data_ptr(), k2l.data_ptr(), b2l.data_ptr(), h, w,
+              tap1.data_ptr(), tap2.data_ptr(), _stream(x))
     block1_fwd.launches += 1
     return tap1, tap2
 
@@ -208,9 +203,9 @@ def block1_bwd(tap1, tap2, g1, g2, k1, k2, mul_dtype=torch.bfloat16):
     k2r, k1r = cached_bwd_layouts(k1, k2)
     dy1 = torch.empty((h, w, 64), dtype=torch.bfloat16, device=tap1.device)
     dx = torch.empty((h, w, 3), dtype=torch.float32, device=tap1.device)
-    _launch(tap1.device, "block1_bwd", tap1.data_ptr(), tap2.data_ptr(),
-            g1.data_ptr(), g2.data_ptr(), k2r.data_ptr(), k1r.data_ptr(), h,
-            w, dy1.data_ptr(), dx.data_ptr(), _stream(tap1))
+    launch_on(tap1.device, "block1_bwd", tap1.data_ptr(), tap2.data_ptr(),
+              g1.data_ptr(), g2.data_ptr(), k2r.data_ptr(), k1r.data_ptr(),
+              h, w, dy1.data_ptr(), dx.data_ptr(), _stream(tap1))
     block1_bwd.launches += 1
     return dx
 

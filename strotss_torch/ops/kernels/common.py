@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from strotss_torch.ops.kernels import build
+
 _L2NORM_EPS = 1e-12  # floor on squared row norms before the rsqrt
 _L2DIST_EPS = 1e-6  # floor on squared L2 distances
 _COLSUM_EPS = 1e-12  # floor on self-similarity column sums
@@ -64,3 +66,13 @@ def check_cuda_f32(name: str, t: torch.Tensor, shape) -> None:
                          f"{tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def launch_on(device: torch.device, *args) -> None:
+    """``build.launch(*args)`` with ``device`` current, entering a device
+    context only when another device is current."""
+    if device.index == torch.cuda.current_device():
+        build.launch(*args)
+    else:
+        with torch.cuda.device(device):
+            build.launch(*args)

@@ -8,7 +8,9 @@ which configure JAX, are left out::
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Tolerances: minima and the forward loss to rtol 1e-5 (float32 products
-summed in another order). The backward product, after the pull-back's
+summed in another order; K1's tensor-core route sums three TF32 products
+per product, as accurate); REMD 'both' at C = 3, which cancels in float32,
+no further from float64 than twice the plain version. The backward product, after the pull-back's
 projection, to 1e-4 of its largest entry in all but 1% of the rows: where
 A - B lies within rounding of 0, the kernel and the plain version may
 take opposite signs, which moves the two rows of that pair. VGG block1:
@@ -44,9 +46,13 @@ def _rand(seed, shape, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,m,c,dist", [(1024, 1024, 2179, "cosine"),
+                                        (1000, 777, 2179, "both"),
+                                        (130, 70, 2179, "l2"),
                                         (1000, 777, 64, "both"),
                                         (300, 200, 35, "l2")])
 def test_remd_mins_on_card(cuda_device, n, m, c, dist):
+    """Both routes (by C) and ragged edges (N not a multiple of 64 or 128,
+    M not a multiple of 64)."""
     x, y = _rand(n, (n, c), cuda_device), _rand(m + 7, (m, c), cuda_device)
     before = remd.mins.launches
     got = remd.mins(x, y, dist)
@@ -56,6 +62,107 @@ def test_remd_mins_on_card(cuda_device, n, m, c, dist):
     torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0)
     for a, b in zip(got, remd.mins(x, y, dist)):
         assert torch.equal(a, b)  # no atomics: bitwise reproducible
+
+
+@pytest.mark.cuda
+def test_remd_mins_misaligned_rows_on_card(cuda_device):
+    """Row slices whose first element is not 16-byte aligned (C = 2179 is
+    odd) take the tensor-core route through an aligned copy."""
+    xf = _rand(5, (301, 2179), cuda_device)
+    yf = _rand(6, (203, 2179), cuda_device)
+    x, y = xf[1:], yf[3:]
+    assert x.data_ptr() % 16 and y.data_ptr() % 16
+    got = remd.mins(x, y, "cosine")
+    want = remd.mins_plain(x, y, "cosine")
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0)
+
+
+def _dist64(x, y, dist):
+    x, y = x.double(), y.double()
+    xn = x / x.norm(dim=1, keepdim=True).clamp_min(1e-6)
+    yn = y / y.norm(dim=1, keepdim=True).clamp_min(1e-6)
+    msq = ((x * x).sum(1)[:, None] + (y * y).sum(1)[None, :]
+           - 2.0 * (x @ y.T))
+    l2 = torch.sqrt(msq.clamp(min=1e-6) / x.shape[1])
+    return {"cosine": 1.0 - xn @ yn.T, "l2": l2,
+            "both": 1.0 - xn @ yn.T + l2}[dist]
+
+
+@pytest.mark.cuda
+def test_remd_mins_yuv_on_card(cuda_device):
+    """The YUV term's call, 1024 x 1024 x 3 'both' on positive values, on
+    the CUDA-core route. 'both' at C = 3 cancels in float32 (1 - cos and
+    the L2 expansion of near neighbours), so the minima are held to float64:
+    no further from it than twice the plain float32 version (at least
+    1e-5), as chip_smoke.py holds them."""
+    gen = np.random.default_rng(3)
+    x = torch.tensor(gen.random((1024, 3)), dtype=torch.float32,
+                     device=cuda_device)
+    y = torch.tensor(gen.random((1024, 3)), dtype=torch.float32,
+                     device=cuda_device)
+    assert remd.route(3) == "cuda_cores"
+    got = remd.mins(x, y, "both")
+    want = remd.mins_plain(x, y, "both")
+    full = _dist64(x, y, "both")
+    ref = (full.min(dim=1).values, full.min(dim=0).values)
+
+    def rel(a, b):
+        return float(((a.double() - b) / b).abs().max())
+
+    tol = max(1e-5, 2.0 * max(rel(want[0], ref[0]), rel(want[1], ref[1])))
+    assert max(rel(got[0], ref[0]), rel(got[1], ref[1])) <= tol
+    for a, b in zip(got, remd.mins(x, y, "both")):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side", ["below", "at"])
+def test_remd_routes_meet_at_threshold(cuda_device, side):
+    """One C on each side of the tensor-core threshold, at a ragged shape:
+    the C entry takes the route the threshold says, and both routes, forced,
+    give the plain version's minima to rtol 1e-5."""
+    c = remd.tc_min_c() - (1 if side == "below" else 0)
+    assert remd.route(c) == ("cuda_cores" if side == "below"
+                             else "tensor_cores")
+    x, y = _rand(c, (257, c), cuda_device), _rand(c + 1, (129, c),
+                                                  cuda_device)
+    want = remd.mins_plain(x, y, "cosine")
+    for route in (None,) + remd.ROUTES:
+        got = remd.mins(x, y, "cosine", route)
+        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0)
+        torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+def test_remd_mins_repeat_call_allocates_outputs_only(cuda_device,
+                                                      monkeypatch):
+    """At a repeated shape on the same stream the wrapper makes one device
+    allocation (the four outputs share it; the tile partials' scratch is
+    kept), enters no device context while the tensors' device is current,
+    and the C entry sets no kernel attribute again."""
+    x, y = _rand(1, (1024, 2179), cuda_device), _rand(2, (1024, 2179),
+                                                      cuda_device)
+    first = remd.mins(x, y, "cosine")
+    setups = remd.tc_setups()
+    contexts = []
+
+    class RecordingDevice(torch.cuda.device):
+        def __init__(self, *args):
+            contexts.append(args)
+            super().__init__(*args)
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    with monkeypatch.context() as patch:
+        patch.setattr(torch.cuda, "device", RecordingDevice)
+        again = remd.mins(x, y, "cosine")
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_stats()["allocation.all.allocated"]
+    assert after == before + 1, f"{after - before} allocations"
+    assert contexts == [] and remd.tc_setups() == setups
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
