@@ -361,6 +361,27 @@ def _signed_rows(seed, n, c, k=16):
     return torch.tensor(a, device="cuda")
 
 
+_K2A_KERNELS = ("selfsim_fwd_kernel", "selfsim_fwd_reduce_kernel")
+_K2B_KERNELS = ("selfsim_bwd_kernel",)
+
+
+def _sign_flips(xh, yh, cx, cy, signs):
+    """(how many of K2a's signs differ from the plain version's, the
+    largest |A - B| among them over max|A - B|); in place, so that N =
+    32769 holds three N x N float32 matrices at most."""
+    import torch
+
+    a = torch.mm(xh, xh.T).neg_().add_(1.0).div_(cx[None, :])
+    b = torch.mm(yh, yh.T).neg_().add_(1.0).div_(cy[None, :])
+    a.sub_(b)
+    del b
+    flips = torch.sign(a).to(torch.int8) != signs
+    n_flips = int(flips.sum())
+    a.abs_()
+    size = float(a[flips].max() / a.max()) if n_flips else 0.0
+    return n_flips, size
+
+
 def check_selfsim(n, c, seed, rates, reps=25, exact=False):
     """K2a and K2b against their plain versions at one shape; ``reps``
     timed calls each (fewer at large N, where one call takes ~1 s).
@@ -379,18 +400,25 @@ def check_selfsim(n, c, seed, rates, reps=25, exact=False):
     else:
         x, y = _inputs(seed, (n, c)), _inputs(seed + 1, (n, c))
     xh, yh, _, _, cx, cy = selfsim._prep(x, y)
-    loss, tx, ty = selfsim.selfsim_fwd(xh, yh, cx, cy)
+    loss, tx, ty, signs = selfsim.selfsim_fwd(xh, yh, cx, cy)
     again = selfsim.selfsim_fwd(xh, yh, cx, cy)
-    check(all(torch.equal(a, b) for a, b in zip((loss, tx, ty), again)),
+    check(all(torch.equal(a, b) for a, b in zip((loss, tx, ty, signs),
+                                                 again)),
           f"selfsim_fwd N={n}: two runs differ")
-    ux, uy = selfsim.selfsim_bwd(xh, yh, cx, cy, tx, ty)
-    again = selfsim.selfsim_bwd(xh, yh, cx, cy, tx, ty)
+    del again
+    ux, uy = selfsim.selfsim_bwd(xh, yh, cx, cy, tx, ty, signs)
+    again = selfsim.selfsim_bwd(xh, yh, cx, cy, tx, ty, signs)
     check(torch.equal(ux, again[0]) and torch.equal(uy, again[1]),
           f"selfsim_bwd N={n}: two runs differ")
+    del again
 
     p_loss = selfsim.self_similarity_plain(x, y)
     lerr = abs(float(loss) - float(p_loss)) / abs(float(p_loss))
     check(lerr <= 1e-5, f"selfsim N={n}: loss rel err {lerr}")
+    flips, flip_size = _sign_flips(xh, yh, cx, cy, signs)
+    check(flip_size <= 1e-5, f"selfsim_fwd N={n}: {flips} signs differ from "
+          f"the plain version's, where |A - B| reaches {flip_size} of its "
+          "largest value")
 
     # Gradients, row by row: 1e-4 of max|g| in all but 1% of the rows.
     # Where A - B lies within rounding of 0, kernel and plain version may
@@ -401,7 +429,7 @@ def check_selfsim(n, c, seed, rates, reps=25, exact=False):
     def project(u, h):
         return u - torch.sum(u * h, dim=1, keepdim=True) * h
 
-    pux, puy = selfsim.selfsim_bwd_plain(xh, yh, cx, cy, tx, ty)
+    pux, puy = selfsim.selfsim_bwd_plain(xh, yh, cx, cy, tx, ty, signs)
     rows_off_u = max(_rows_off(project(u, h), project(pu, h))
                      for u, pu, h in ((ux, pux, xh), (uy, puy, yh)))
 
@@ -420,14 +448,13 @@ def check_selfsim(n, c, seed, rates, reps=25, exact=False):
 
     warm, dev_reps = min(3, reps), min(20, reps)
     fwd_ms = time_ms(lambda: selfsim.selfsim_fwd(xh, yh, cx, cy), reps, warm)
-    bwd_ms = time_ms(lambda: selfsim.selfsim_bwd(xh, yh, cx, cy, tx, ty),
-                     reps, warm)
+    bwd_ms = time_ms(lambda: selfsim.selfsim_bwd(xh, yh, cx, cy, tx, ty,
+                                                 signs), reps, warm)
     fwd_dev = device_ms(lambda: selfsim.selfsim_fwd(xh, yh, cx, cy),
-                        ("selfsim_fwd_kernel", "selfsim_fwd_reduce_kernel"),
-                        dev_reps)
-    bwd_dev = device_ms(lambda: selfsim.selfsim_bwd(xh, yh, cx, cy, tx, ty),
-                        ("selfsim_gmat_kernel", "selfsim_apply_kernel"),
-                        dev_reps)
+                        _K2A_KERNELS, dev_reps)
+    bwd_dev = device_ms(lambda: selfsim.selfsim_bwd(xh, yh, cx, cy, tx, ty,
+                                                    signs),
+                        _K2B_KERNELS, dev_reps)
     xr = x.clone().requires_grad_(True)
     yr = y.clone().requires_grad_(True)
     p_val = selfsim.self_similarity_plain(xr, yr)
@@ -437,15 +464,27 @@ def check_selfsim(n, c, seed, rates, reps=25, exact=False):
         p_val, [xr, yr], retain_graph=True), reps, warm)
     del p_val
     # x^ x^T and y^ y^T are symmetric: N(N+1)/2 dot products of length C
-    # each, so N(N+1)C operations per Gram matrix
+    # each, so N(N+1)C operations per Gram matrix; K2a also writes N^2
+    # bytes of signs
     gram_flops = 2 * float(n) * (n + 1) * c
     fwd_flops = gram_flops + 8.0 * n * n
-    fwd_bytes = 4.0 * (2 * n * c + 2 * n) + 4.0 * (1 + 2 * n)
-    bwd_flops = gram_flops + 2 * 2.0 * n * n * c + 12.0 * n * n
-    bwd_bytes = 4.0 * (2 * n * c + 4 * n) + 4.0 * 2 * n * c
+    fwd_bytes = 4.0 * (2 * n * c + 2 * n) + 4.0 * (1 + 2 * n) + float(n) * n
+    # K2b, with the signs as an input: the two products H x^ (on the tensor
+    # cores three TF32 products each), reading the signs, x^, y^ and four
+    # vectors, writing u for x and y
+    prod_flops = 2 * 2.0 * n * n * c
+    bwd_bytes = float(n) * n + 4.0 * (2 * n * c + 4 * n) + 4.0 * 2 * n * c
+    bwd_cores = bound_ms(prod_flops, bwd_bytes, rates)
+    bwd_tc = bound_ms(3 * prod_flops, bwd_bytes, rates, "tf32")
+
+    def host(ms, dev):
+        return ms - dev if isinstance(dev, float) else "not measured"
+
     out = {
         "fwd": {"shape": [n, c], "max_abs_err": abs(float(loss - p_loss)),
-                "max_rel_err": lerr, "ms": fwd_ms, "device_ms": fwd_dev,
+                "max_rel_err": lerr, "sign_flips": flips,
+                "ms": fwd_ms, "device_ms": fwd_dev,
+                "host_ms": host(fwd_ms, fwd_dev),
                 "plain_ms": plain_fwd_ms, "library_ms": None,
                 **dict(zip(("bound_ms", "bound_by"),
                            bound_ms(fwd_flops, fwd_bytes, rates)))},
@@ -454,10 +493,23 @@ def check_selfsim(n, c, seed, rates, reps=25, exact=False):
                 "grad_err_vs_plain": gerr_plain,
                 "rows_off_projected": rows_off_u,
                 "rows_off_grad": rows_off_g, "ms": bwd_ms,
-                "device_ms": bwd_dev,
+                "device_ms": bwd_dev, "host_ms": host(bwd_ms, bwd_dev),
                 "plain_ms": plain_bwd_ms, "library_ms": None,
-                **dict(zip(("bound_ms", "bound_by"),
-                           bound_ms(bwd_flops, bwd_bytes, rates)))},
+                "bound_ms": bwd_tc[0], "bound_by": bwd_tc[1],
+                "bound_fp32_cores_ms": bwd_cores[0]},
+        # the content loss and its gradient as one row: the Gram pair once
+        # plus the products, so moving work between K2a and K2b cannot
+        # flatter either
+        "fwd_bwd": {
+            "ms": fwd_ms + bwd_ms,
+            "device_ms": (fwd_dev + bwd_dev if isinstance(fwd_dev, float)
+                          and isinstance(bwd_dev, float) else "not measured"),
+            "bound_fp32_cores_ms": bound_ms(gram_flops + prod_flops,
+                                            fwd_bytes + 4.0 * 2 * n * c,
+                                            rates)[0],
+            "bound_3xtf32_ms": bound_ms(3 * (gram_flops + prod_flops),
+                                        fwd_bytes + 4.0 * 2 * n * c, rates,
+                                        "tf32")[0]},
     }
     emit({"phase": "kernel", "name": "selfsim", **out})
     return out
@@ -1107,14 +1159,17 @@ def phase_profile(vgg_params):
             else "not measured",
             "scale_seconds": [s["seconds"] for s in info["scales"]],
             "rows": rows}
+    # every kernel the default path launches: a renamed or missing one
+    # would read 0 here
     ours = {"remd_tc_kernel", "remd_tile_kernel", "remd_reduce_kernel",
-            "selfsim_fwd_kernel",
-            "selfsim_fwd_reduce_kernel", "selfsim_gmat_kernel",
-            "selfsim_apply_kernel", "block1_fwd_kernel", "block1_dy1_kernel",
-            "block1_dx_kernel"}
+            *_K2A_KERNELS, *_K2B_KERNELS, "block1_fwd_kernel",
+            "block1_dy1_kernel", "block1_dx_kernel"}
     rows = out["kernel"].pop("rows")
     by_kernel = {o: sum(r[1] for r in rows if o in r[0]) / steps
                  for o in sorted(ours)}
+    if rows:
+        missing = sorted(o for o, ms in by_kernel.items() if ms <= 0)
+        check(not missing, f"profile: no device time in {missing}")
     emit({"phase": "profile", "steps": steps, **out["kernel"],
           "port_kernels_ms_per_step": sum(by_kernel.values()),
           "port_kernel_ms_per_step": by_kernel,
@@ -1128,6 +1183,8 @@ _TIMES = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")
 #: K1's own fields in the kernels line, beside the common ones
 _K1_FIELDS = ("route_taken", "host_ms", "tile_device_ms", "reduce_device_ms",
               "bound_fp32_cores_ms")
+#: K2's own fields in the kernels line (``fwd_bwd``: K2a and K2b together)
+_K2_FIELDS = ("host_ms", "bound_fp32_cores_ms", "sign_flips")
 
 
 def _with_yuv(main, yuv):
@@ -1143,9 +1200,13 @@ def kernels_line(meas, launches):
     ss_big = meas["selfsim_32769"]
     rows = [("remd_mins", _with_yuv(*meas["remd_mins"]))]
     for name in ("fwd", "bwd"):
-        rows.append((f"selfsim_{name}", dict(
-            meas["selfsim"][name],
-            n_32769={k: ss_big[name][k] for k in _TIMES})))
+        row = dict(meas["selfsim"][name], n_32769={
+            k: ss_big[name][k] for k in _TIMES + _K2_FIELDS
+            if k in ss_big[name]})
+        if name == "bwd":
+            row["fwd_bwd"] = meas["selfsim"]["fwd_bwd"]
+            row["n_32769"]["fwd_bwd"] = ss_big["fwd_bwd"]
+        rows.append((f"selfsim_{name}", row))
     rows.append(("block1_fwd", meas["block1"]["fwd"]))
     rows.append(("block1_bwd", meas["block1"]["bwd"]))
     rows.append(("sinkhorn_lse", _with_yuv(*meas["sinkhorn_lse"])))
@@ -1158,8 +1219,9 @@ def kernels_line(meas, launches):
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
             "device_ms": m["device_ms"],
-            **{k: v for k, v in m.items() if k in ("yuv_both_c3",
-                                                    "n_32769") + _K1_FIELDS},
+            **{k: v for k, v in m.items() if k in (
+                "yuv_both_c3", "n_32769", "fwd_bwd") + _K1_FIELDS
+               + _K2_FIELDS},
         })
     return {"kernels": out}
 

@@ -76,6 +76,7 @@
 // ill-conditioned in f32, so it keeps plain f32 products.
 #include <stdint.h>
 
+#include "tc.cuh"
 #include "tile.cuh"
 
 // C from which the entry point takes the tensor-core route. From the two
@@ -93,7 +94,6 @@
 #define TC_THREADS 256
 #define TC_STAGE_FLOATS ((TC_BM + TC_BN) * TC_LD)
 #define TC_SMEM_BYTES (TC_STAGES * TC_STAGE_FLOATS * 4)
-#define MAX_DEVICES 64
 
 static_assert(TC_BN == TILE, "both routes share the row partials' layout");
 
@@ -185,73 +185,7 @@ remd_tile_kernel(const float* __restrict__ x, const float* __restrict__ y,
 }
 
 // ---- tensor-core route ---------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// cp.async of 16 bytes, of which the first `src_bytes` are read and the
-// rest zero-filled.
-__device__ __forceinline__ void cp_async16z(float* dst, const float* src,
-                                            int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// all but the newest `pending` groups have landed
-template <int pending>
-__device__ __forceinline__ void cp_async_wait_group() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(pending) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// v rounded to TF32 (10 mantissa bits), nearest, ties away from zero; the
-// low 13 bits of the result are 0. For finite v these are the bits of
-// cvt.rna.tf32.f32, computed on the integer pipe: conversions issue 16
-// results a clock per SM, and cvt made the whole kernel ~12% slower
-// (tools/k1_ablation.py, `cvt_rounding`). ops/kernels/remd.py `tf32_round`
-// is the same rounding in Python.
-__device__ __forceinline__ uint32_t tf32_rna(float v) {
-  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
-}
-
-__device__ __forceinline__ void tf32_split(float v, uint32_t& big,
-                                           uint32_t& small) {
-  big = tf32_rna(v);
-  small = tf32_rna(v - __uint_as_float(big));
-}
-
-// c += a (16 x 8, row-major) * b (8 x 8, column-major); TF32 in, f32 sums
-// (`mma_tf32_0`: c = a * b).
-// Fragments (PTX ISA, "Matrix Fragments for mma.m16n8k8", .tf32), lane
-// 4g + t (ops/kernels/remd.py `frag_a`, `frag_b`, `frag_c`):
-//   a[i]: row g + 8 (i & 1), column t + 4 (i >> 1);
-//   b[i]: row t + 4 i, column g;
-//   c[i]: row g + 8 (i >> 1), column 2t + (i & 1).
-__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4],
-                                         const uint32_t b[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void mma_tf32_0(float c[4], const uint32_t a[4],
-                                           const uint32_t b[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
-      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
-        "f"(0.f));
-}
-
+// (its cp.async, TF32 split and mma.sync pieces are in tc.cuh)
 // Shared-memory row of tile row r (the x rows 0..TC_BM-1, then the y
 // rows): in each 32-row slab the rows that share r % 4 are 8 consecutive
 // rows. Rows that share r % 4 share their misalignment in device memory,
@@ -360,11 +294,6 @@ __device__ __forceinline__ float pair_dist(float dot, float xs, float ys,
 // are consecutive and their columns start at the same offset: 32 lanes,
 // 32 banks; that offset is the rows' misalignment, (j * C) % 4.
 
-// One k8 step's A (2 x 16 x 8) and B (4 x 8 x 8) fragments of a warp, split.
-struct TcFrag {
-  uint32_t a_big[2][4], a_small[2][4], b_big[4][2], b_small[4][2];
-};
-
 // Reads a warp's fragments of k8 step kk of stage `st` (`a_off`, `b_off`:
 // the thread's offsets of its A rows j and B columns j, channel t),
 // splits them, and adds their squares to the row norms xs, ys.
@@ -387,23 +316,6 @@ __device__ __forceinline__ void tc_read_split(const float* st, int kk,
       const float v = st[b_off[nb] + kk + i * 4];
       tf32_split(v, f.b_big[nb][i], f.b_small[nb][i]);
       ys[nb] = fmaf(v, v, ys[nb]);
-    }
-}
-
-// part (+)= the three TF32 products of one k8 step; `first` starts the sums
-// from 0.
-__device__ __forceinline__ void tc_mma(float part[2][4][4], const TcFrag& f,
-                                       bool first) {
-#pragma unroll
-  for (int mb = 0; mb < 2; ++mb)
-#pragma unroll
-    for (int nb = 0; nb < 4; ++nb) {
-      if (first)
-        mma_tf32_0(part[mb][nb], f.a_big[mb], f.b_small[nb]);
-      else
-        mma_tf32(part[mb][nb], f.a_big[mb], f.b_small[nb]);
-      mma_tf32(part[mb][nb], f.a_small[mb], f.b_big[nb]);
-      mma_tf32(part[mb][nb], f.a_big[mb], f.b_big[nb]);
     }
 }
 
@@ -683,24 +595,6 @@ __global__ void remd_reduce_kernel(
 static bool tc_ready[MAX_DEVICES];
 static int tc_setups = 0;
 
-// Lets remd_tc_kernel use TC_SMEM_BYTES of shared memory on the current
-// device: once per device, not once per call.
-static cudaError_t tc_setup() {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  if (!tc_ready[dev]) {
-    err = cudaFuncSetAttribute(remd_tc_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               TC_SMEM_BYTES);
-    if (err != cudaSuccess) return err;
-    tc_ready[dev] = true;
-    ++tc_setups;
-  }
-  return cudaSuccess;
-}
-
 extern "C" int remd_tc_setups(void) { return tc_setups; }
 
 // The route the entry point takes for c channels: 1 tensor cores, 0 CUDA
@@ -725,7 +619,8 @@ extern "C" int remd_mins(const float* x, const float* y, int n, int m, int c,
   const int ntm = (m + TILE - 1) / TILE;
   int ntn;
   if (route == 1) {
-    cudaError_t err = tc_setup();
+    cudaError_t err = smem_limit_once(remd_tc_kernel, TC_SMEM_BYTES, tc_ready,
+                                      &tc_setups);
     if (err != cudaSuccess) return (int)err;
     ntn = (n + TC_BM - 1) / TC_BM;
     remd_tc_kernel<<<dim3(ntm, ntn), TC_THREADS, TC_SMEM_BYTES, stream>>>(

@@ -8,6 +8,8 @@ and its plain version cannot drift apart. The same floors are written into
 
 from __future__ import annotations
 
+from collections import OrderedDict
+
 import torch
 
 from strotss_torch.ops.kernels import build
@@ -76,3 +78,23 @@ def launch_on(device: torch.device, *args) -> None:
     else:
         with torch.cuda.device(device):
             build.launch(*args)
+
+
+_SCRATCH_KEPT = 8  # scratch buffers kept, the least recently used dropped
+_scratch: "OrderedDict[tuple, tuple]" = OrderedDict()
+
+
+def stream_scratch(key: tuple, stream: int, numel: int, dtype,
+                   device: torch.device) -> torch.Tensor:
+    """A kernel's scratch of ``numel`` elements, one buffer per ``key``
+    (which names the kernel, device and shape), made anew when ``stream``
+    is another than the one it was made on: the kernels of one stream run
+    in order, so only that stream may reuse it."""
+    hit = _scratch.get(key)
+    if hit is None or hit[0] != stream:
+        hit = (stream, torch.empty(numel, dtype=dtype, device=device))
+        _scratch[key] = hit
+    _scratch.move_to_end(key)
+    while len(_scratch) > _SCRATCH_KEPT:
+        _scratch.popitem(last=False)
+    return hit[1]

@@ -20,7 +20,6 @@ arithmetic and layouts in Python, for the CPU tests.
 
 from __future__ import annotations
 
-from collections import OrderedDict
 from typing import Optional, Tuple
 
 import torch
@@ -33,6 +32,7 @@ from strotss_torch.ops.kernels.common import (
     launch_on,
     normalize_rows,
     resolve_impl,
+    stream_scratch,
 )
 from strotss_torch.ops.losses import dist_metrics
 
@@ -44,7 +44,6 @@ TC_BM, TC_BN, TC_KC, TC_LD = 128, 64, 32, 36
 _TC_WARPS_M, _TC_WARPS_N = 4, 2
 #: the C entry's routes, by their code in csrc/remd.cu
 ROUTES = ("cuda_cores", "tensor_cores")
-_SCRATCH_KEPT = 8
 
 
 def tf32_round(v: torch.Tensor) -> torch.Tensor:
@@ -158,26 +157,13 @@ def mins_plain(x: torch.Tensor, y: torch.Tensor, distance: str):
     return rowmin, colmin, rowarg.int(), colarg.int()
 
 
-#: (device index, n, m) -> (stream handle, scratch of the tile partials)
-_scratch: "OrderedDict[tuple, tuple]" = OrderedDict()
-
-
 def _scratch_ptrs(device: torch.device, n: int, m: int, stream: int):
-    """Pointers to rowpart_v, rowpart_i, colpart_v, colpart_i: one buffer
-    per (device, n, m), made anew when the current stream is another than
-    the one it was made on (the kernels of one stream run in order, so only
-    that stream may reuse it)."""
-    key = (device.index, n, m)
-    hit = _scratch.get(key)
+    """Pointers to rowpart_v, rowpart_i, colpart_v, colpart_i in one
+    buffer kept per (device, n, m) and stream (``common.stream_scratch``)."""
     ntm, ntn = -(-m // _TILE), -(-n // _TILE)
-    if hit is None or hit[0] != stream:
-        hit = (stream, torch.empty(2 * (ntm * n + ntn * m), dtype=torch.int32,
-                                   device=device))
-        _scratch[key] = hit
-    _scratch.move_to_end(key)
-    while len(_scratch) > _SCRATCH_KEPT:
-        _scratch.popitem(last=False)
-    rv = hit[1].data_ptr()
+    rv = stream_scratch(("remd", device.index, n, m), stream,
+                        2 * (ntm * n + ntn * m), torch.int32,
+                        device).data_ptr()
     ri = rv + 4 * ntm * n
     cv = ri + 4 * ntm * n
     return rv, ri, cv, cv + 4 * ntn * m

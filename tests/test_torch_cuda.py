@@ -11,9 +11,12 @@ Tolerances: minima and the forward loss to rtol 1e-5 (float32 products
 summed in another order; K1's tensor-core route sums three TF32 products
 per product, as accurate); REMD 'both' at C = 3, which cancels in float32,
 no further from float64 than twice the plain version. The backward product, after the pull-back's
-projection, to 1e-4 of its largest entry in all but 1% of the rows: where
-A - B lies within rounding of 0, the kernel and the plain version may
-take opposite signs, which moves the two rows of that pair. VGG block1:
+projection, to 1e-4 of its largest entry in all but 1% of the rows (K2b
+takes the forward's signs, and its product is three TF32 products
+summed a stage at a time, as accurate as float32; the plain version on the
+card rounds G once more, dividing by N as a product with 1/N); the
+forward's signs differ from the plain version's only where A - B lies
+within 1e-5 of its largest value of 0. VGG block1:
 tap1 to 1e-5 of its largest value (exact bf16 products summed in another
 order), tap2 and dx to 1e-3 (where that order moves y1 or dy1 across a
 bf16 rounding boundary, one operand moves by 2^-8). Sinkhorn LSE passes
@@ -166,15 +169,27 @@ def test_remd_mins_repeat_call_allocates_outputs_only(cuda_device,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,c", [(1024, 2179), (1000, 2179), (200, 35)])
+@pytest.mark.parametrize("n,c", [(1024, 2179), (1000, 2179), (200, 35),
+                                 (130, 35)])
 def test_selfsim_on_card(cuda_device, n, c):
+    """K2a's loss and signs, and K2b on those signs, against the plain
+    versions; K2b is bitwise repeatable."""
     x, y = _rand(n, (n, c), cuda_device), _rand(n + 1, (n, c), cuda_device)
     xh, yh, _, _, cx, cy = selfsim._prep(x, y)
-    loss, tx, ty = selfsim.selfsim_fwd(xh, yh, cx, cy)
-    p_loss, _, _ = selfsim.selfsim_fwd_plain(xh, yh, cx, cy)
+    before = (selfsim.selfsim_fwd.launches, selfsim.selfsim_bwd.launches)
+    loss, tx, ty, signs = selfsim.selfsim_fwd(xh, yh, cx, cy)
+    p_loss, _, _, p_signs = selfsim.selfsim_fwd_plain(xh, yh, cx, cy)
     torch.testing.assert_close(loss, p_loss, rtol=1e-5, atol=0)
-    got = selfsim.selfsim_bwd(xh, yh, cx, cy, tx, ty)
-    want = selfsim.selfsim_bwd_plain(xh, yh, cx, cy, tx, ty)
+    # the kernel's signs differ from the plain version's only where A - B
+    # lies within rounding of 0
+    diff = ((1.0 - xh @ xh.T) / cx[None, :]
+            - (1.0 - yh @ yh.T) / cy[None, :]).abs()
+    flips = signs != p_signs
+    assert bool((diff[flips] <= 1e-5 * diff.max()).all())
+    got = selfsim.selfsim_bwd(xh, yh, cx, cy, tx, ty, signs)
+    assert (selfsim.selfsim_fwd.launches,
+            selfsim.selfsim_bwd.launches) == (before[0] + 1, before[1] + 1)
+    want = selfsim.selfsim_bwd_plain(xh, yh, cx, cy, tx, ty, signs)
 
     def project(u, h):
         return u - torch.sum(u * h, dim=1, keepdim=True) * h
@@ -183,6 +198,44 @@ def test_selfsim_on_card(cuda_device, n, c):
         row_err = (project(u, h) - project(pu, h)).abs().amax(dim=1)
         bad = row_err > 1e-4 * project(pu, h).abs().max()
         assert int(bad.sum()) <= n // 100
+    again = selfsim.selfsim_bwd(xh, yh, cx, cy, tx, ty, signs)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    # signs whose rows are not SIGN_PITCH-aligned are refused
+    if n % selfsim.SIGN_PITCH:
+        with pytest.raises(ValueError, match="laid out"):
+            selfsim.selfsim_bwd(xh, yh, cx, cy, tx, ty, signs.contiguous())
+
+
+@pytest.mark.cuda
+def test_selfsim_bwd_repeat_call_allocates_outputs_only(cuda_device,
+                                                        monkeypatch):
+    """A repeat K2b call makes one device allocation (both outputs share
+    it; there is no scratch), enters no device context while the tensors'
+    device is current, and its C entry sets no kernel attribute again."""
+    n, c = 1024, 2179
+    x, y = _rand(1, (n, c), cuda_device), _rand(2, (n, c), cuda_device)
+    xh, yh, _, _, cx, cy = selfsim._prep(x, y)
+    loss, tx, ty, signs = selfsim.selfsim_fwd(xh, yh, cx, cy)
+    first = selfsim.selfsim_bwd(xh, yh, cx, cy, tx, ty, signs)
+    setups = selfsim.bwd_setups()
+    contexts = []
+
+    class RecordingDevice(torch.cuda.device):
+        def __init__(self, *args):
+            contexts.append(args)
+            super().__init__(*args)
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    with monkeypatch.context() as patch:
+        patch.setattr(torch.cuda, "device", RecordingDevice)
+        again = selfsim.selfsim_bwd(xh, yh, cx, cy, tx, ty, signs)
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_stats()["allocation.all.allocated"]
+    assert after == before + 1, f"{after - before} allocations"
+    assert contexts == [] and selfsim.bwd_setups() == setups
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1],
+                                                           again[1])
 
 
 def _err(got, want) -> float:

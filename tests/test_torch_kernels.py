@@ -76,8 +76,9 @@ def test_remd_vjp_matches_pallas(dist):
 
 @pytest.mark.parametrize("n,c", [(96, 20), (130, 35)])
 def test_selfsim_pieces_match_pallas(n, c):
-    """selfsim_fwd's (loss, t_x, t_y) and selfsim_bwd's (G + G^T) x^
-    against the Pallas forward and its two backward sweeps."""
+    """selfsim_fwd's (loss, t_x, t_y, signs) and selfsim_bwd's (G + G^T) x^
+    on those signs against the Pallas forward and its two backward sweeps,
+    which recompute the signs from D."""
     x, y = _rand(n, (n, c)), _rand(n + 1, (n, c))
     jloss, res, _ = jselfsim._fwd_impl(jnp.asarray(x), jnp.asarray(y), True)
     xh, yh, _, _, xp, yp, cxp, cyp, jtx, jty, n_, np_, cp, tn = res
@@ -86,12 +87,12 @@ def test_selfsim_pieces_match_pallas(n, c):
     v = jselfsim._bwd_call(xp, yp, cxp, cyp, jtx, jty, n_, np_, cp, tn,
                            True, True)
     txh, tyh, _, _, tcx, tcy = selfsim._prep(torch.tensor(x), torch.tensor(y))
-    loss, tx, ty = selfsim.selfsim_fwd(txh, tyh, tcx, tcy)
+    loss, tx, ty, signs = selfsim.selfsim_fwd(txh, tyh, tcx, tcy)
     np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
     for t, j in ((tx, jtx), (ty, jty)):
         j = np.asarray(j)[0, :n]
         assert np.abs(t.numpy() - j).max() <= 1e-5 * np.abs(j).max()
-    ux, uy = selfsim.selfsim_bwd(txh, tyh, tcx, tcy, tx, ty)
+    ux, uy = selfsim.selfsim_bwd(txh, tyh, tcx, tcy, tx, ty, signs)
     for got, i, h in ((ux, 0, txh), (uy, 1, tyh)):
         want = torch.tensor(np.asarray(u[i] + v[i])[:n, :c])
         # compared after the pull-back's projection off x^_i: the diagonal
@@ -120,9 +121,9 @@ def test_cpu_tensors_take_the_plain_version():
         assert torch.equal(got, want)
     xs = torch.tensor(_rand(7, (40, 9)))
     xh, yh, _, _, cx, cy = selfsim._prep(x, xs)
-    loss, tx, ty = selfsim.selfsim_fwd(xh, yh, cx, cy)
+    loss, tx, ty, signs = selfsim.selfsim_fwd(xh, yh, cx, cy)
     assert torch.equal(loss, selfsim.selfsim_fwd_plain(xh, yh, cx, cy)[0])
-    selfsim.selfsim_bwd(xh, yh, cx, cy, tx, ty)
+    selfsim.selfsim_bwd(xh, yh, cx, cy, tx, ty, signs)
     # nothing was launched
     assert before == (remd.mins.launches, selfsim.selfsim_fwd.launches,
                       selfsim.selfsim_bwd.launches)

@@ -81,14 +81,19 @@ _CHECKED = ("as_is", "cvt_rounding")
 
 
 def _variants():
+    """remd.cu with tc.cuh written in place of its include (the split and
+    the mma step live there), as-is and edited."""
     with open(os.path.join(build.CSRC, "remd.cu")) as fh:
         src = fh.read()
+    with open(os.path.join(build.CSRC, "tc.cuh")) as fh:
+        src = src.replace('#include "tc.cuh"\n', fh.read(), 1)
     out = {"as_is": src}
     for name, edits in _EDITS.items():
         out[name] = src
         for old, new in edits:
             if old not in src:
-                raise RuntimeError(f"{name}: remd.cu no longer has {old!r}")
+                raise RuntimeError(f"{name}: remd.cu and tc.cuh no longer have "
+                                   f"{old!r}")
             out[name] = out[name].replace(old, new)
     return out
 
