@@ -117,19 +117,26 @@ def device_ms(fn, names, reps: int = 20):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     ms = 0.0
-    for ev in prof.key_averages():
-        if (ev.device_type == torch.autograd.DeviceType.CUDA
-                and ev.key.startswith(tuple(names)) and ev.count):
-            dev = getattr(ev, "self_device_time_total", None)
-            dev = dev if dev is not None else ev.self_cuda_time_total
-            ms += dev / 1e3 / ev.count
-    return ms if ms > 0 else "not measured"
+    # a window that records none of the kernels (seen once for K2a's
+    # cluster launches at N = 1024) is profiled once more
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for ev in prof.key_averages():
+            # a template kernel's name reads "void name<...>(...)"
+            if (ev.device_type == torch.autograd.DeviceType.CUDA
+                    and ev.key.removeprefix("void ").startswith(tuple(names))
+                    and ev.count):
+                dev = getattr(ev, "self_device_time_total", None)
+                dev = dev if dev is not None else ev.self_cuda_time_total
+                ms += dev / 1e3 / ev.count
+        if ms > 0:
+            return ms
+    return "not measured"
 
 
 def bound_ms(flops: float, nbytes: float, rates, ops: str = "fp32") -> tuple:
@@ -464,11 +471,13 @@ def check_selfsim(n, c, seed, rates, reps=25, exact=False):
         p_val, [xr, yr], retain_graph=True), reps, warm)
     del p_val
     # x^ x^T and y^ y^T are symmetric: N(N+1)/2 dot products of length C
-    # each, so N(N+1)C operations per Gram matrix; K2a also writes N^2
-    # bytes of signs
+    # each, so N(N+1)C operations per Gram matrix (on the tensor cores
+    # three TF32 products each); K2a also writes N^2 bytes of signs
     gram_flops = 2 * float(n) * (n + 1) * c
     fwd_flops = gram_flops + 8.0 * n * n
     fwd_bytes = 4.0 * (2 * n * c + 2 * n) + 4.0 * (1 + 2 * n) + float(n) * n
+    fwd_cores = bound_ms(fwd_flops, fwd_bytes, rates)
+    fwd_tc = bound_ms(3 * gram_flops, fwd_bytes, rates, "tf32")
     # K2b, with the signs as an input: the two products H x^ (on the tensor
     # cores three TF32 products each), reading the signs, x^, y^ and four
     # vectors, writing u for x and y
@@ -483,11 +492,14 @@ def check_selfsim(n, c, seed, rates, reps=25, exact=False):
     out = {
         "fwd": {"shape": [n, c], "max_abs_err": abs(float(loss - p_loss)),
                 "max_rel_err": lerr, "sign_flips": flips,
+                "split": selfsim.fwd_split(
+                    n, torch.cuda.get_device_properties(0)
+                    .multi_processor_count),
                 "ms": fwd_ms, "device_ms": fwd_dev,
                 "host_ms": host(fwd_ms, fwd_dev),
                 "plain_ms": plain_fwd_ms, "library_ms": None,
-                **dict(zip(("bound_ms", "bound_by"),
-                           bound_ms(fwd_flops, fwd_bytes, rates)))},
+                "bound_ms": fwd_tc[0], "bound_by": fwd_tc[1],
+                "bound_fp32_cores_ms": fwd_cores[0]},
         "bwd": {"shape": [n, c], "max_abs_err": float(max(
                     (a - b).abs().max() for a, b in zip(gk, gp))),
                 "grad_err_vs_plain": gerr_plain,
@@ -780,6 +792,11 @@ def phase_kernels(rates):
           f"{remd_yuv['route_taken']} at C = 3")
     ss_main = check_selfsim(1024, 2179, 7, rates)
     check_selfsim(1000, 2179, 9, rates)
+    # K2a with 2 blocks a tile pair (1024 and 1000 take 4; 32769 takes 1)
+    ss_1500 = check_selfsim(1500, 2179, 29, rates, reps=10)
+    check(ss_main["fwd"]["split"] == 4 and ss_1500["fwd"]["split"] == 2,
+          f"selfsim_fwd splits: {ss_main['fwd']['split']} at N = 1024, "
+          f"{ss_1500['fwd']['split']} at N = 1500")
     # the 512 px content and style scales, and the smallest content scale
     b1_main = check_block1(384, 512, 11, rates)
     check_block1(512, 398, 13, rates)
@@ -794,6 +811,8 @@ def phase_kernels(rates):
     check_streamed(4096, 3, "both", 25)
     # self-similarity at the path's N = 32769, its first run above 1024
     ss_big = check_selfsim(32769, 2179, 27, rates, reps=2, exact=True)
+    check(ss_big["fwd"]["split"] == 1,
+          f"selfsim_fwd split at N = 32769: {ss_big['fwd']['split']}")
     torch.cuda.empty_cache()
     return {"remd_mins": (remd_main, remd_yuv), "selfsim": ss_main,
             "selfsim_32769": ss_big, "block1": b1_main,
@@ -1184,7 +1203,7 @@ _TIMES = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")
 _K1_FIELDS = ("route_taken", "host_ms", "tile_device_ms", "reduce_device_ms",
               "bound_fp32_cores_ms")
 #: K2's own fields in the kernels line (``fwd_bwd``: K2a and K2b together)
-_K2_FIELDS = ("host_ms", "bound_fp32_cores_ms", "sign_flips")
+_K2_FIELDS = ("host_ms", "bound_fp32_cores_ms", "sign_flips", "split")
 
 
 def _with_yuv(main, yuv):

@@ -43,9 +43,10 @@
 //   132 SMs. Each block reads its 192 rows of x and y once from L2,
 //   1.67 MB at C = 2179, 214 MB for the whole call (64 x 64 tiles would read
 //   290 MB).
-// - Loads. 32-channel slices of the 192 rows stream through a ring of four
-//   stages in shared memory (110.6 KB of dynamic shared memory, its limit
-//   set once per device) by 16-byte `cp.async`, zero-filled past C and past
+// - Loads (tc.cuh, shared with K2a). 32-channel slices of the 192 rows
+//   stream through a ring of four stages in shared memory (110.6 KB of
+//   dynamic shared memory, its limit set once per device) by 16-byte
+//   `cp.async`, zero-filled past C and past
 //   the last row or column. At C = 2179 a row starts 4-byte aligned only,
 //   so each row's slice comes as the 16-byte aligned window that holds it,
 //   channel k at column s + k, s = (row * C) % 4 (a ninth chunk where
@@ -70,8 +71,8 @@
 // CUDA-core route (`remd_tile_kernel`, C < REMD_TC_MIN_C; the YUV term,
 // C = 3): each block takes one 64 x 64 tile, forms its dot products with
 // fp32 FMAs from 64 x 32 slices of x and y in shared memory (`tile_dot`,
-// shared with selfsim.cu), turns them into distances (`tile_dist`, shared
-// with sinkhorn.cu), and writes the tile's row and column minima with their
+// tile.cuh), turns them into distances (`tile_dist`, shared with
+// sinkhorn.cu), and writes the tile's row and column minima with their
 // argmins. At C = 3 the tensor cores save nothing, and 'both' there is
 // ill-conditioned in f32, so it keeps plain f32 products.
 #include <stdint.h>
@@ -88,8 +89,6 @@
 
 #define TC_BM 128  // x rows of a block's tile
 #define TC_BN 64   // y rows (columns) of a block's tile: TILE, as the partials
-#define TC_KC 32   // channels a stage
-#define TC_LD 36   // floats between rows in shared memory
 #define TC_STAGES 4
 #define TC_THREADS 256
 #define TC_STAGE_FLOATS ((TC_BM + TC_BN) * TC_LD)
@@ -185,91 +184,8 @@ remd_tile_kernel(const float* __restrict__ x, const float* __restrict__ y,
 }
 
 // ---- tensor-core route ---------------------------------------------------
-// (its cp.async, TF32 split and mma.sync pieces are in tc.cuh)
-// Shared-memory row of tile row r (the x rows 0..TC_BM-1, then the y
-// rows): in each 32-row slab the rows that share r % 4 are 8 consecutive
-// rows. Rows that share r % 4 share their misalignment in device memory,
-// (r * C) % 4 floats, and so the column offset of their channels below.
-__device__ __forceinline__ int tc_smem_row(int r) {
-  return (r & ~31) | ((r & 3) << 3) | ((r & 31) >> 2);
-}
-
-// Where a thread's share of each stage comes from; the same rows and
-// chunks in every stage, so the pointers and checks are made once. A row's
-// TC_KC channels of a stage come as the 16-byte aligned window of chunks
-// that holds them, channel k at column s + k with s = (row * C) % 4 (x and
-// y are 16-byte aligned): thread tid copies chunk tid % 8 of the rows
-// tid / 8 + 32 q and, for tid < TC_BM + TC_BN where s > 0, chunk 8 of row
-// tid.
-struct TcLoader {
-  const float* xp;  // chunk tid % 8 of x row row0 + tid / 8
-  const float* yp;  // the same in y
-  const float* p8;  // chunk 8 of row tid (x or y)
-  const float* x;   // a valid address, for the copies that read nothing
-  size_t slab_c;    // 32 rows of C channels
-  int dst, dst8;    // the chunks' offsets in a stage
-  int ch, ch8;      // their first channels (negative: the row before's)
-  int x_ok, y_ok, ok8;  // rows inside the matrix: x and y counts, chunk 8
-};
-
-__device__ __forceinline__ TcLoader tc_loader(const float* x, int row0,
-                                              int n, const float* y,
-                                              int col0, int m, int c) {
-  TcLoader L;
-  const int tid = threadIdx.x;
-  const int lr = tid / 8;
-  // row0 and col0 are multiples of 32, so a row's misalignment is that of
-  // its index in the tile
-  const int s = (int)(((unsigned)lr * (unsigned)c) & 3u);
-  L.ch = 4 * (tid % 8) - s;
-  L.dst = tc_smem_row(lr) * TC_LD + 4 * (tid % 8);
-  L.xp = x + (size_t)(row0 + lr) * c + L.ch;
-  L.yp = y + (size_t)(col0 + lr) * c + L.ch;
-  L.x = x;
-  L.slab_c = (size_t)32 * c;
-  const int xl = n - row0 - lr, yl = m - col0 - lr;
-  L.x_ok = xl <= 0 ? 0 : (xl + 31) / 32;
-  L.y_ok = yl <= 0 ? 0 : (yl + 31) / 32;
-  const int s8 = (int)(((unsigned)tid * (unsigned)c) & 3u);
-  L.ch8 = TC_KC - s8;
-  L.dst8 = tc_smem_row(tid) * TC_LD + TC_KC;
-  const bool is_x = tid < TC_BM;
-  const int gr = is_x ? row0 + tid : col0 + tid - TC_BM;
-  L.ok8 = s8 > 0 && tid < TC_BM + TC_BN && gr < (is_x ? n : m);
-  L.p8 = L.ok8 ? (is_x ? x : y) + (size_t)gr * c + L.ch8 : x;
-  return L;
-}
-
-// Bytes of a 16-byte chunk that lie inside the row: those of channels
-// ch..ch+3 below c (the chunk that holds channel c - 1 is zero-filled past
-// it, and chunks past it read nothing).
-__device__ __forceinline__ int tc_chunk_bytes(int c, int ch) {
-  const int rem = c - ch;
-  return rem >= 4 ? 16 : (rem > 0 ? 4 * rem : 0);
-}
-
-// Channels [k0, k0 + TC_KC) of the tile's x rows and y rows into `st`,
-// zero past C and past the last row or column.
-__device__ __forceinline__ void tc_load_stage(float* st, const TcLoader& L,
-                                              int k0, int c) {
-  const int bytes = tc_chunk_bytes(c, k0 + L.ch);
-#pragma unroll
-  for (int q = 0; q < TC_BM / 32; ++q) {
-    const bool ok = q < L.x_ok && bytes > 0;
-    cp_async16z(st + L.dst + q * 32 * TC_LD,
-                ok ? L.xp + q * L.slab_c + k0 : L.x, ok ? bytes : 0);
-  }
-#pragma unroll
-  for (int q = 0; q < TC_BN / 32; ++q) {
-    const bool ok = q < L.y_ok && bytes > 0;
-    cp_async16z(st + L.dst + (TC_BM + q * 32) * TC_LD,
-                ok ? L.yp + q * L.slab_c + k0 : L.x, ok ? bytes : 0);
-  }
-  if (L.ok8) {
-    const int bytes8 = tc_chunk_bytes(c, k0 + L.ch8);
-    cp_async16z(st + L.dst8, bytes8 > 0 ? L.p8 + k0 : L.x, bytes8);
-  }
-}
+// (its cp.async, TF32 split, mma.sync, stage loader and fragment reads are
+// in tc.cuh; a stage holds the tile's TC_BM x rows, then its TC_BN y rows)
 
 // The distance of one pair from its dot product, the squared norms and
 // their floored reciprocal square roots: tile_dist's arithmetic for one
@@ -284,39 +200,6 @@ __device__ __forceinline__ float pair_dist(float dot, float xs, float ys,
     v += sqrtf(fmaxf(msq, 1e-6f) * inv_c);
   }
   return v;
-}
-
-// Warp (wm, wn) of a block owns tile rows wm * 32 + 4 g + j and tile
-// columns wn * 32 + 4 g + j, j = 0..3, g = 0..7: A fragment mb holds the
-// rows with j = 2 mb (its rows 0..7) and j = 2 mb + 1 (rows 8..15), B
-// fragment nb the columns with j = nb (ops/kernels/remd.py `tc_tile_rc`).
-// So the 8 rows of one fragment read share r % 4, their shared-memory rows
-// are consecutive and their columns start at the same offset: 32 lanes,
-// 32 banks; that offset is the rows' misalignment, (j * C) % 4.
-
-// Reads a warp's fragments of k8 step kk of stage `st` (`a_off`, `b_off`:
-// the thread's offsets of its A rows j and B columns j, channel t),
-// splits them, and adds their squares to the row norms xs, ys.
-__device__ __forceinline__ void tc_read_split(const float* st, int kk,
-                                              const int a_off[4],
-                                              const int b_off[4], TcFrag& f,
-                                              float xs[2][2], float ys[4]) {
-#pragma unroll
-  for (int mb = 0; mb < 2; ++mb)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float v = st[a_off[2 * mb + (i & 1)] + kk + (i >> 1) * 4];
-      tf32_split(v, f.a_big[mb][i], f.a_small[mb][i]);
-      xs[mb][i & 1] = fmaf(v, v, xs[mb][i & 1]);
-    }
-#pragma unroll
-  for (int nb = 0; nb < 4; ++nb)
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float v = st[b_off[nb] + kk + i * 4];
-      tf32_split(v, f.b_big[nb][i], f.b_small[nb][i]);
-      ys[nb] = fmaf(v, v, ys[nb]);
-    }
 }
 
 // One TC_BM x TC_BN tile of the distance matrix per block: its row minima
@@ -340,12 +223,7 @@ remd_tc_kernel(const float* __restrict__ x, const float* __restrict__ y,
   const int row0 = blockIdx.y * TC_BM;
 
   int a_off[4], b_off[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int sh = (int)(((unsigned)j * (unsigned)c) & 3u);
-    a_off[j] = (wm * 32 + j * 8 + g) * TC_LD + sh + t;
-    b_off[j] = (TC_BM + wn * 32 + j * 8 + g) * TC_LD + sh + t;
-  }
+  tc_frag_offsets(wm * 32, TC_BM + wn * 32, c, a_off, b_off);
 
   float acc[2][4][4], part[2][4][4];
 #pragma unroll
@@ -358,11 +236,13 @@ remd_tc_kernel(const float* __restrict__ x, const float* __restrict__ y,
   float ys[4] = {0.f, 0.f, 0.f, 0.f};         // columns j = nb
 
   const int nst = (c + TC_KC - 1) / TC_KC;
-  const TcLoader ld = tc_loader(x, row0, n, y, col0, m, c);
+  const TcLoader<TC_BM, TC_BN> ld =
+      tc_loader<TC_BM, TC_BN>(row0, n, col0, m, c, tid);
 #pragma unroll
   for (int s = 0; s < TC_STAGES - 1; ++s) {
     if (s < nst)
-      tc_load_stage(smem + s * TC_STAGE_FLOATS, ld, s * TC_KC, c);
+      tc_load_stage(smem + s * TC_STAGE_FLOATS, ld, x, y, s * TC_KC, c,
+                    true);
     cp_async_commit();
   }
 
@@ -373,14 +253,14 @@ remd_tc_kernel(const float* __restrict__ x, const float* __restrict__ y,
     __syncthreads();
     if (s + TC_STAGES - 1 < nst)
       tc_load_stage(smem + ((s + TC_STAGES - 1) % TC_STAGES) * TC_STAGE_FLOATS,
-                    ld, (s + TC_STAGES - 1) * TC_KC, c);
+                    ld, x, y, (s + TC_STAGES - 1) * TC_KC, c, true);
     cp_async_commit();
 
     const float* st = smem + (s % TC_STAGES) * TC_STAGE_FLOATS;
 #pragma unroll
     for (int kk = 0; kk < TC_KC; kk += 8) {
       TcFrag f;
-      tc_read_split(st, kk, a_off, b_off, f, xs, ys);
+      tc_read_split<true>(st, kk, a_off, b_off, f, xs, ys);
       tc_mma(part, f, kk == 0);
     }
 #pragma unroll

@@ -21,10 +21,9 @@
 // dense on the tensor cores, 3.35 TB/s), main path N = 1024, C = 2179:
 //   K2a: two Gram matrices x^ x^T and y^ y^T, symmetric, so N(N+1)/2 dot
 //     products of length C each: 2 N(N+1) C = 4.6 GFLOP, 0.068 ms on the
-//     CUDA cores; it reads 17.8 MB and writes N^2 bytes of signs. Bound by
-//     operations. It computes both halves of each Gram matrix (2x the
-//     needed operations) with fp32 FMAs; using the symmetry and the tensor
-//     cores is left to a later change.
+//     CUDA cores, or, as three TF32 products each, 13.7 GFLOP, 0.0277 ms;
+//     it reads 17.8 MB and writes N^2 bytes of signs. Bound by operations.
+//     At N = 32769: 70.0 and 28.4 ms.
 //   K2b: with the signs as an input, only the two products H x^:
 //     2 * 2 N^2 C = 9.14 GFLOP, 0.136 ms on the CUDA cores, or, as three
 //     TF32 products each, 27.4 GFLOP, 0.0554 ms; it moves 36.7 MB
@@ -33,12 +32,53 @@
 //     once plus the products, 0.205 ms on the CUDA cores, 0.0831 ms with
 //     3xTF32 products.
 //
-// K2a. One block per 64 x 64 tile of the N x N plane (256 blocks at
-// N = 1024), fp32 FMAs from 64 x 32 slices in shared memory (`tile_dot`).
-// A block writes its tile's signs, its share of sum|A - B| and its 64
-// column sums of t to partial buffers; a small kernel adds them up in a
-// fixed order. No float atomics, so the loss, t and the signs are the same
-// bit for bit on every run.
+// K2a (`selfsim_fwd_kernel<KS>` and `selfsim_fwd_reduce_kernel`).
+// - Symmetry. The Gram tiles are formed for the tile pairs (I, J), I <= J,
+//   of 64-row tiles only: nt (nt + 1) / 2 pairs, nt = ceil(N / 64) (136 at
+//   N = 1024, 131,841 at N = 32769), walked in bands of 16 tile columns so
+//   that a band's rows stay in L2 (`fwd_tile`). One Gram tile P = x^_I
+//   x^_J^T (and Q for y^) serves both orientations of the pair: (i, j),
+//   normalised by c_j, and (j, i), normalised by c_i, whose signs differ.
+//   A diagonal tile takes the direct orientation only, and loads its rows
+//   once.
+// - Precision. The JAX kernel's products are Precision.HIGHEST, and the
+//   loss is held to rtol 1e-5 and the signs to the plain version's, so the
+//   Gram tiles are K1's 3xTF32 (tc.cuh): x^ split into TF32 big and small
+//   parts where it is read into registers, big.big + big.small + small.big
+//   on `mma.sync.m16n8k8` TF32, each 32-channel stage's sums added into f32
+//   registers.
+// - Tiles and loads. A block of 256 threads, 8 warps: warps 0..3 form P as
+//   2 x 2 warp tiles of 32 x 32, warps 4..7 form Q. 32-channel stages of
+//   the four row sets x^_I, x^_J, y^_I, y^_J (36.9 KB) stream through a
+//   3-deep ring by K1's loader (tc.cuh): each row as its 16-byte aligned
+//   window, rows grouped by r % 4 so that every fragment read lands on 32
+//   banks. Two blocks an SM (ptxas: 128 registers, no spills).
+// - Grid fill. 136 pairs on 132 SMs would leave 4 SMs with two pairs: a
+//   pair may be split over a cluster of KS = 2 or 4 blocks, each taking
+//   a share of the stages; after one cluster barrier each block adds the
+//   KS partial tiles of its 64 / KS rows of I in rank order from the
+//   others' shared memory (distributed shared memory: no device-memory
+//   scratch) and takes the epilogue of those rows. The wrapper picks KS
+//   by N and the card's SMs (ops/kernels/selfsim.py `fwd_split`; 4 at
+//   N = 1024, 1 from 2048 up).
+// - Epilogue. P and Q meet once in the ring's memory (every warp done with
+//   the last stage: one barrier after cp.async.wait_all). Each thread then
+//   takes its elements of each orientation in a column-owner layout: the
+//   plain version's float32 operations with IEEE divisions, D = 1 - P,
+//   A - B = D_x / c_x - D_y / c_y, the sign, |A - B| and s D. Both sign
+//   tiles are staged in shared memory and stored as 16-byte row chunks.
+// - No atomics. Each slot tx_part[G n + col] (row group G of 64 / KS rows,
+//   column col) has one writer: the block whose rows of I are G, directly,
+//   or the pair whose J holds G > I, transposed. The reduction folds them
+//   over G in order, and the blocks' loss partials in double in a fixed
+//   order: the loss, t and the signs are the same bit for bit on every run.
+// - Measured (H100 80GB HBM3, 700 W; PERF.md, chip_smoke.py,
+//   tools/k2a_ablation.py): 0.157 ms device at N = 1024, C = 2179 (4
+//   blocks a pair; 0.232 with one), 5.7x the 3xTF32 bound above and 2.8x
+//   faster than the whole-plane CUDA-core kernel it replaces (0.441);
+//   107 ms at N = 32769 (was 396; the plain version 200). What holds it:
+//   one TF32 product instead of three saves a third; with no products at
+//   all the loads, fragment reads and split still take ~80% of the time.
 //
 // K2b (`selfsim_bwd_kernel`), one kernel; blockIdx.z picks x or y.
 // - Precision. The JAX kernel's product is Precision.HIGHEST and the
@@ -84,103 +124,375 @@
 #include <stdint.h>
 
 #include "tc.cuh"
-#include "tile.cuh"
+
+// ---- K2a ------------------------------------------------------------------
+
+#define SF_TILE 64       // rows of a tile, I and J
+#define SF_BAND 16       // tile columns J of a band of the schedule
+#define SF_STAGES 3
+#define SF_MIN_BLOCKS 2  // blocks an SM, for the register budget
+#define SF_THREADS 256
+#define SF_STAGE_FLOATS (4 * SF_TILE * TC_LD)  // x^_I, x^_J, y^_I, y^_J
+#define SF_RING_BYTES (SF_STAGES * SF_STAGE_FLOATS * 4)
+// the ring, then c_x and c_y of the I rows and of the J rows
+#define SF_SMEM_BYTES (SF_RING_BYTES + 4 * SF_TILE * 4)
+#define SF_LDE 65        // floats between rows of the P and Q tiles
+
+static_assert(SF_THREADS == 4 * SF_TILE, "one c value a thread");
 
 __device__ __forceinline__ float sign_f(float v) {
   return v > 0.f ? 1.f : (v < 0.f ? -1.f : 0.f);
 }
 
-__global__ void __launch_bounds__(NTHREADS)
-selfsim_fwd_kernel(const float* __restrict__ xh, const float* __restrict__ yh,
-                   const float* __restrict__ cx, const float* __restrict__ cy,
-                   int n, int c, float* __restrict__ total_part,
-                   float* __restrict__ tx_part, float* __restrict__ ty_part,
-                   signed char* __restrict__ signs, int sp) {
-  __shared__ float as[KC][TILE + 1];
-  __shared__ float bs[KC][TILE + 1];
-  __shared__ float stx[16][TILE];
-  __shared__ float sty[16][TILE];
-  __shared__ float red[NTHREADS];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int col0 = blockIdx.x * TILE;
-  const int row0 = blockIdx.y * TILE;
-
-  float gx[4][4], gy[4][4];
-  tile_dot<false>(xh, row0, n, xh, col0, n, c, as, bs, gx, nullptr, nullptr);
-  tile_dot<false>(yh, row0, n, yh, col0, n, c, as, bs, gy, nullptr, nullptr);
-
-  float abs_sum = 0.f;
-  float ctx[4] = {0.f, 0.f, 0.f, 0.f};
-  float cty[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int b = 0; b < 4; ++b) {
-    const int col = col0 + tx + 16 * b;
-    if (col >= n) continue;
-    const float cxj = cx[col];
-    const float cyj = cy[col];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int row = row0 + ty + 16 * a;
-      if (row >= n) continue;
-      const float dx = 1.0f - gx[a][b];
-      const float dy = 1.0f - gy[a][b];
-      const float diff = dx / cxj - dy / cyj;
-      const float s = sign_f(diff);
-      signs[(size_t)row * sp + col] = (signed char)s;
-      abs_sum += fabsf(diff);
-      ctx[b] += s * dx;
-      cty[b] += s * dy;
-    }
+// Tile pair (I, J), I <= J, of block b: the triangle of nt x nt tiles is
+// walked in bands of SF_BAND tile columns; in a band, rows I from 0 up, in
+// each row the band's columns J >= I in order. One band's J rows and the I
+// rows of the blocks in flight stay in L2 at N = 32769
+// (ops/kernels/selfsim.py `fwd_tile`).
+__device__ __forceinline__ void fwd_tile(int b, int nt, int& ti, int& tj) {
+  int k0 = 0, w = min(SF_BAND, nt);
+  while (b >= k0 * w + w * (w + 1) / 2) {
+    b -= k0 * w + w * (w + 1) / 2;
+    k0 += w;
+    w = min(SF_BAND, nt - k0);
   }
-#pragma unroll
-  for (int b = 0; b < 4; ++b) {
-    stx[ty][tx + 16 * b] = ctx[b];
-    sty[ty][tx + 16 * b] = cty[b];
+  if (b < k0 * w) {
+    ti = b / w;
+    tj = k0 + b % w;
+    return;
   }
-  red[tid] = abs_sum;
-  __syncthreads();
-  for (int s = NTHREADS / 2; s > 0; s >>= 1) {
-    if (tid < s) red[tid] += red[tid + s];
-    __syncthreads();
+  b -= k0 * w;
+  int i = 0;
+  while (b >= w - i) {
+    b -= w - i;
+    ++i;
   }
-  if (tid == 0) total_part[blockIdx.y * gridDim.x + blockIdx.x] = red[0];
-  if (tid < TILE) {
-    const int col = col0 + tid;
-    float t = 0.f;
-    for (int g = 0; g < 16; ++g) t += stx[g][tid];
-    if (col < n) tx_part[(size_t)blockIdx.y * n + col] = t;
-  } else if (tid < 2 * TILE) {
-    const int col = col0 + tid - TILE;
-    float t = 0.f;
-    for (int g = 0; g < 16; ++g) t += sty[g][tid - TILE];
-    if (col < n) ty_part[(size_t)blockIdx.y * n + col] = t;
+  ti = k0 + i;
+  tj = ti + b;
+}
+
+// Channels [k0, k0 + TC_KC) of the tile's four row sets into stage `st`:
+// one loader for x^ and y^ (the same rows); threads 0..127 copy the ninth
+// chunks of the x^ rows, threads 128..255 those of the y^ rows.
+__device__ __forceinline__ void sf_load_stage(
+    float* st, const TcLoader<SF_TILE, SF_TILE>& L, const float* xh,
+    const float* yh, int k0, int c) {
+  const bool lo = threadIdx.x < 2 * SF_TILE;
+  tc_load_stage(st, L, xh, xh, k0, c, lo);
+  tc_load_stage(st + 2 * SF_TILE * TC_LD, L, yh, yh, k0, c, !lo);
+}
+
+// Cluster barrier halves and a load from another block's shared memory
+// (distributed shared memory, sm_90): the blocks of one tile pair add up
+// their partial Gram tiles without a round trip through device memory.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+
+__device__ __forceinline__ float ld_cluster(const float* local, int rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a) : "r"(smem_addr(local)), "r"(rank));
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v) : "r"(a) : "memory");
+  return v;
+}
+
+// NK elements of one orientation for one thread: rows r = r0 + k of a tile
+// whose element (r, col) has the dot products P[e], Q[e], e = r * rs +
+// col * cst, and the normalisers c_x, c_y of its column. The plain
+// version's float32 operations with IEEE divisions: D = 1 - P, A - B =
+// D_x / c_x - D_y / c_y; D and A - B are 0 outside the matrix (rows from
+// `rows_left` on, or the column past N). The sign goes to the staged tile
+// `sg` (row r, column col, rows `sgp` bytes apart), |A - B| into `lsum`,
+// s D into `tsx`, `tsy`.
+template <int NK>
+__device__ __forceinline__ void sf_orient(const float* P, const float* Q,
+                                          int rs, int cst, int col, int r0,
+                                          bool col_ok, int rows_left,
+                                          float cxv, float cyv,
+                                          signed char* sg, int sgp,
+                                          float& lsum, float& tsx,
+                                          float& tsy) {
+#pragma unroll 4
+  for (int k = 0; k < NK; ++k) {
+    const int r = r0 + k;
+    const int e = r * rs + col * cst;
+    // a row past N may hold anything (its ninth chunk is never copied)
+    const bool ok = col_ok && r < rows_left;
+    const float dx = ok ? 1.0f - P[e] : 0.f;
+    const float dy = ok ? 1.0f - Q[e] : 0.f;
+    const float diff = ok ? dx / cxv - dy / cyv : 0.f;
+    const float s = sign_f(diff);
+    sg[r * sgp + col] = (signed char)s;
+    lsum += fabsf(diff);
+    tsx += s * dx;
+    tsy += s * dy;
   }
 }
 
-// Threads g < n fold t_x[g] and t_y[g] over the row tiles in order; thread
-// g == n adds the per-block loss partials in order, in double: there are
-// (n/64)^2 of them (263,169 at n = 32769), too many for a float sum.
-__global__ void selfsim_fwd_reduce_kernel(
-    const float* __restrict__ total_part, const float* __restrict__ tx_part,
-    const float* __restrict__ ty_part, int n, int n_tiles, int n_blocks,
-    float* __restrict__ loss, float* __restrict__ tx, float* __restrict__ ty) {
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g < n) {
+// One tile pair (I, J), I <= J, per cluster of KS blocks: block q of the
+// cluster forms the Gram tiles over its share of the 32-channel stages, P =
+// x^_I x^_J^T (warps 0..3, 2 x 2 of 32 x 32) and Q = y^_I y^_J^T (warps
+// 4..7), 3xTF32; the KS partial tiles are added in rank order, each block
+// taking its R = 64 / KS rows of I; then both orientations of those rows.
+template <int KS>
+__global__ void __launch_bounds__(SF_THREADS, SF_MIN_BLOCKS)
+selfsim_fwd_kernel(const float* __restrict__ xh, const float* __restrict__ yh,
+                   const float* __restrict__ cx, const float* __restrict__ cy,
+                   int n, int c, int nt, float* __restrict__ total_part,
+                   float* __restrict__ tx_part, float* __restrict__ ty_part,
+                   signed char* __restrict__ signs, int sp) {
+  constexpr int R = SF_TILE / KS;  // rows of I a block's epilogue takes
+  constexpr int NK = R / 4;        // elements a thread, each orientation
+  extern __shared__ __align__(16) unsigned char sf_smem[];
+  float* smem = reinterpret_cast<float*>(sf_smem);
+  float* cs = smem + SF_RING_BYTES / 4;  // c_x I, c_y I, c_x J, c_y J
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int gram = warp >> 2;  // 0: P (x^), 1: Q (y^)
+  const int wm = (warp >> 1) & 1;
+  const int wn = warp & 1;
+  const int q = KS > 1 ? cluster_rank() : 0;
+  int ti, tj;
+  fwd_tile(blockIdx.x / KS, nt, ti, tj);
+  const bool diag = ti == tj;
+  const int i0 = ti * SF_TILE, j0 = tj * SF_TILE;
+  {
+    const int r = (tid & 128 ? j0 : i0) + (tid & 63);
+    cs[tid] = r < n ? (tid & 64 ? cy : cx)[r] : 1.f;
+  }
+
+  // stage rows: x^_I 0..63, x^_J 64..127, y^_I 128..191, y^_J 192..255; a
+  // diagonal tile loads no J rows and reads its B fragments from the I rows
+  int a_off[4], b_off[4];
+  tc_frag_offsets(128 * gram + 32 * wm,
+                  128 * gram + (diag ? 0 : SF_TILE) + 32 * wn, c, a_off,
+                  b_off);
+  const TcLoader<SF_TILE, SF_TILE> ld = tc_loader<SF_TILE, SF_TILE>(
+      i0, n, j0, diag ? j0 : n, c, tid & (2 * SF_TILE - 1));
+
+  float acc[2][4][4], part[2][4][4];
+#pragma unroll
+  for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mb][nb][i] = 0.f;
+
+  // this block's stages: [s0, s0 + nst) of the ceil(C / 32)
+  const int nst_all = (c + TC_KC - 1) / TC_KC;
+  const int s0 = q * nst_all / KS;
+  const int nst = (q + 1) * nst_all / KS - s0;
+#pragma unroll
+  for (int s = 0; s < SF_STAGES - 1; ++s) {
+    if (s < nst)
+      sf_load_stage(smem + s * SF_STAGE_FLOATS, ld, xh, yh, (s0 + s) * TC_KC,
+                    c);
+    cp_async_commit();
+  }
+  for (int s = 0; s < nst; ++s) {
+    // stage s has landed for every thread, and every warp is done with
+    // stage s - 1, whose slot the load of stage s + SF_STAGES - 1 takes
+    cp_async_wait_group<SF_STAGES - 2>();
+    __syncthreads();
+    if (s + SF_STAGES - 1 < nst)
+      sf_load_stage(smem + ((s + SF_STAGES - 1) % SF_STAGES) * SF_STAGE_FLOATS,
+                    ld, xh, yh, (s0 + s + SF_STAGES - 1) * TC_KC, c);
+    cp_async_commit();
+
+    const float* st = smem + (s % SF_STAGES) * SF_STAGE_FLOATS;
+#pragma unroll
+    for (int kk = 0; kk < TC_KC; kk += 8) {
+      TcFrag f;
+      tc_read_split<false>(st, kk, a_off, b_off, f, nullptr, nullptr);
+      tc_mma(part, f, kk == 0);
+    }
+#pragma unroll
+    for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mb][nb][i] += part[mb][nb][i];
+  }
+  cp_async_wait_all();
+  __syncthreads();  // every warp is done with the ring: it takes P and Q
+
+  // acc[mb][nb][i]: tile row 32 wm + 4 g + 2 mb + (i >> 1), tile column
+  // 32 wn + 4 (2 t + (i & 1)) + nb
+  {
+    const int g = lane >> 2, t = lane & 3;
+    float* pq = smem + gram * SF_TILE * SF_LDE;
+#pragma unroll
+    for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          pq[(32 * wm + 4 * g + 2 * mb + (i >> 1)) * SF_LDE + 32 * wn +
+             4 * (2 * t + (i & 1)) + nb] = acc[mb][nb][i];
+  }
+
+  // P and Q rows q R .. q R + R - 1, summed over the cluster in rank order
+  // (with KS = 1 the block's own tiles)
+  const float* P = smem;
+  const float* Q = smem + SF_TILE * SF_LDE;
+  constexpr int EPI_S = 2 * SF_TILE * SF_LDE;
+  constexpr int EPI_SG = EPI_S + (KS > 1 ? 2 * R * SF_LDE : 0);
+  if constexpr (KS > 1) {
+    cluster_arrive();  // every block's partial tiles are in place
+    cluster_wait();
+    float* sum = smem + EPI_S;
+    for (int e = tid; e < 2 * R * SF_TILE; e += SF_THREADS) {
+      const int gq = e / (R * SF_TILE);
+      const int r = e / SF_TILE % R;
+      const int col = e % SF_TILE;
+      const float* at = smem + gq * SF_TILE * SF_LDE + (q * R + r) * SF_LDE + col;
+      float v = 0.f;
+#pragma unroll
+      for (int k = 0; k < KS; ++k) v += ld_cluster(at, k);
+      sum[gq * R * SF_LDE + r * SF_LDE + col] = v;
+    }
+    cluster_arrive();  // done with the other blocks' tiles
+    P = sum;
+    Q = sum + R * SF_LDE;
+  }
+  __syncthreads();
+
+  signed char* sg = reinterpret_cast<signed char*>(smem + EPI_SG);
+  signed char* sgt = sg + R * SF_TILE;  // the transposed tile, rows R apart
+  // the epilogue's tables in the ring: P and Q, the summed rows, the two
+  // staged sign tiles, the t partials of 4 orientation x {x, y} by thread,
+  // the warps' loss sums
+  float* rt = smem + EPI_SG + 2 * R * SF_TILE / 4;
+  float* rl = rt + 4 * SF_THREADS;
+  static_assert(EPI_SG % 4 == 0, "the sign tiles stay 16-byte aligned");
+  static_assert((EPI_SG + 2 * R * SF_TILE / 4 + 4 * SF_THREADS +
+                 SF_THREADS / 32) * 4 <= SF_RING_BYTES,
+                "the epilogue's tables fit in the ring");
+  const int ri0 = i0 + q * R;  // this block's first row of I
+  float lsum = 0.f, tsx = 0.f, tsy = 0.f;
+  {
+    // (i, j), normalised by c_j: rows i of the block's R, columns j of J;
+    // thread (col, rg) rows rg NK + k
+    const int col = tid & (SF_TILE - 1), rg = tid / SF_TILE;
+    sf_orient<NK>(P, Q, SF_LDE, 1, col, rg * NK, j0 + col < n, n - ri0,
+                  cs[2 * SF_TILE + col], cs[3 * SF_TILE + col], sg, SF_TILE,
+                  lsum, tsx, tsy);
+    rt[rg * SF_TILE + col] = tsx;
+    rt[SF_THREADS + rg * SF_TILE + col] = tsy;
+  }
+  if (!diag) {
+    // (j, i) of the pair, normalised by c_i: rows j of J, columns i of the
+    // block's R; thread (ci, rj) rows rj NK + k; its D is D_ij
+    const int ci = tid % R, rj = tid / R;
+    tsx = tsy = 0.f;
+    sf_orient<NK>(P, Q, 1, SF_LDE, ci, rj * NK, ri0 + ci < n, n - j0,
+                  cs[q * R + ci], cs[SF_TILE + q * R + ci], sgt, R, lsum, tsx,
+                  tsy);
+    rt[2 * SF_THREADS + tid] = tsx;
+    rt[3 * SF_THREADS + tid] = tsy;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    lsum += __shfl_xor_sync(0xffffffffu, lsum, off);
+  if (lane == 0) rl[warp] = lsum;
+  __syncthreads();
+
+  // t partials, one a thread, the 4 thread rows of a row group added in
+  // order. Slots are rows groups of R rows: slot (group G, column) is this
+  // block's where {G's tile, the column's tile} is {I, J}: direct where G
+  // is the block's rows of I (threads 0..127: t_x, t_y of the 64 columns
+  // of J), transposed where G lies in J > I (threads 128..255: t_x, t_y of
+  // the R columns of I, for each of J's KS row groups).
+  if (tid < 2 * SF_TILE) {
+    const int col = tid & (SF_TILE - 1);
+    const float* v = rt + (tid >> 6) * SF_THREADS + col;
+    const float sum = ((v[0] + v[SF_TILE]) + v[2 * SF_TILE]) + v[3 * SF_TILE];
+    if (j0 + col < n)
+      (tid >> 6 ? ty_part : tx_part)[(size_t)(KS * ti + q) * n + j0 + col] =
+          sum;
+  } else if (!diag) {
+    const int u = tid - 2 * SF_TILE;
+    const int grp = (u & (SF_TILE - 1)) / R, ci = u % R;
+    const float* v = rt + (2 + (u >> 6)) * SF_THREADS + 4 * grp * R + ci;
+    const float sum = ((v[0] + v[R]) + v[2 * R]) + v[3 * R];
+    if (ri0 + ci < n)
+      (u >> 6 ? ty_part : tx_part)[(size_t)(KS * tj + grp) * n + ri0 + ci] =
+          sum;
+  }
+  if (tid == 0) {
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < SF_THREADS / 32; ++w) v += rl[w];
+    total_part[blockIdx.x] = v;
+  }
+  // the sign tiles, 16 bytes a thread: s[rows of I, J] (R rows of 4
+  // chunks) and s[J, rows of I] (64 rows of R / 16 chunks); columns past n
+  // hold 0 (sp >= j0 + 64)
+  for (int u = tid; u < 4 * R; u += SF_THREADS) {
+    const int r = u >> 2, h = u & 3;
+    if (ri0 + r < n)
+      *reinterpret_cast<int4*>(signs + (size_t)(ri0 + r) * sp + j0 + 16 * h) =
+          *reinterpret_cast<const int4*>(sg + r * SF_TILE + 16 * h);
+    const int j = u / (R / 16), hj = u % (R / 16);
+    if (!diag && j0 + j < n)
+      *reinterpret_cast<int4*>(signs + (size_t)(j0 + j) * sp + ri0 + 16 * hj) =
+          *reinterpret_cast<const int4*>(sgt + j * R + 16 * hj);
+  }
+  if constexpr (KS > 1) cluster_wait();  // no block leaves while read
+}
+
+// Blocks but the last: thread g < n folds t_x[g] and t_y[g] over the
+// n_groups row groups in order, 8 loads in flight. The last block adds the
+// n_blocks loss partials in double (131,841 at n = 32769, too many for a
+// float sum): thread k takes partials k, k + 256, ... in order, then a
+// fixed tree over the 256 sums.
+#define SF_REDUCE_THREADS 256
+__global__ void __launch_bounds__(SF_REDUCE_THREADS)
+selfsim_fwd_reduce_kernel(const float* __restrict__ total_part,
+                          const float* __restrict__ tx_part,
+                          const float* __restrict__ ty_part, int n,
+                          int n_groups, int n_blocks,
+                          float* __restrict__ loss, float* __restrict__ tx,
+                          float* __restrict__ ty) {
+  __shared__ double red[SF_REDUCE_THREADS];
+  const int tid = threadIdx.x;
+  if (blockIdx.x + 1 < gridDim.x) {
+    const int g = blockIdx.x * SF_REDUCE_THREADS + tid;
+    if (g >= n) return;
     float a = 0.f, b = 0.f;
-    for (int t = 0; t < n_tiles; ++t) {
+#pragma unroll 8
+    for (int t = 0; t < n_groups; ++t) {
       a += tx_part[(size_t)t * n + g];
       b += ty_part[(size_t)t * n + g];
     }
     tx[g] = a;
     ty[g] = b;
-  } else if (g == n) {
-    double s = 0.0;
-    for (int i = 0; i < n_blocks; ++i) s += total_part[i];
-    loss[0] = (float)(s / n);
+    return;
   }
+  double s = 0.0;
+  for (int i = tid; i < n_blocks; i += SF_REDUCE_THREADS) s += total_part[i];
+  red[tid] = s;
+  __syncthreads();
+  for (int w = SF_REDUCE_THREADS / 2; w > 0; w >>= 1) {
+    if (tid < w) red[tid] += red[tid + w];
+    __syncthreads();
+  }
+  if (tid == 0) loss[0] = (float)(red[0] / n);
 }
 
 
@@ -445,30 +757,89 @@ selfsim_bwd_kernel(const float* __restrict__ xh, const float* __restrict__ yh,
     }
 }
 
+static bool sf_ready[MAX_DEVICES];
+static int sf_setups = 0;
 static bool sb_ready[MAX_DEVICES];
 static int sb_setups = 0;
 
+extern "C" int selfsim_fwd_setups(void) { return sf_setups; }
 extern "C" int selfsim_bwd_setups(void) { return sb_setups; }
 
-// Scratch: total_part holds ceil(n/64)^2 floats, tx_part and ty_part
-// ceil(n/64)*n each. signs: n rows of `sp` bytes (sp a multiple of
-// SB_PITCH, at least n), 16-byte aligned; K2a writes columns 0..n-1.
-// Returns cudaGetLastError() after both launches.
+// The three kernels' shared-memory limits.
+static cudaError_t sf_set_limits(void) {
+  cudaError_t err = cudaSuccess;
+  const void* kernels[] = {(const void*)selfsim_fwd_kernel<1>,
+                           (const void*)selfsim_fwd_kernel<2>,
+                           (const void*)selfsim_fwd_kernel<4>};
+  for (const void* k : kernels)
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 SF_SMEM_BYTES);
+  return err;
+}
+
+template <int KS>
+static cudaError_t sf_launch(const float* xh, const float* yh,
+                             const float* cx, const float* cy, int n, int c,
+                             int nt, float* total_part, float* tx_part,
+                             float* ty_part, signed char* signs, int sp,
+                             cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(KS * (nt * (nt + 1) / 2));
+  cfg.blockDim = dim3(SF_THREADS);
+  cfg.dynamicSmemBytes = SF_SMEM_BYTES;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = KS;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = KS > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, selfsim_fwd_kernel<KS>, xh, yh, cx, cy, n,
+                            c, nt, total_part, tx_part, ty_part, signs, sp);
+}
+
+// `split`: the blocks a tile pair, 1, 2 or 4 (ops/kernels/selfsim.py
+// `fwd_split` chooses it by n). Scratch, for ks = split and nt =
+// ceil(n/64):
+// total_part holds ks nt (nt + 1) / 2 floats, tx_part and ty_part
+// ks nt n each. xh, yh 16-byte aligned. signs: n rows of `sp` bytes (sp a
+// multiple of SB_PITCH, at least n), 16-byte aligned; K2a writes columns
+// 0..n-1 (and 0 past them up to the tile's end). Returns
+// cudaGetLastError() after both launches.
 extern "C" int selfsim_fwd(const float* xh, const float* yh, const float* cx,
                            const float* cy, int n, int c, float* total_part,
                            float* tx_part, float* ty_part, float* loss,
                            float* tx, float* ty, signed char* signs, int sp,
-                           cudaStream_t stream) {
-  if (sp % SB_PITCH != 0 || sp < n) return (int)cudaErrorInvalidValue;
-  const int nt = (n + TILE - 1) / TILE;
-  selfsim_fwd_kernel<<<dim3(nt, nt), NTHREADS, 0, stream>>>(
-      xh, yh, cx, cy, n, c, total_part, tx_part, ty_part, signs, sp);
-  cudaError_t err = cudaGetLastError();
+                           int split, cudaStream_t stream) {
+  if (sp % SB_PITCH != 0 || sp < n ||
+      reinterpret_cast<uintptr_t>(signs) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(xh) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(yh) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  const int ks = split;
+  cudaError_t err = smem_limit_once(sf_set_limits, sf_ready, &sf_setups);
   if (err != cudaSuccess) return (int)err;
-  const int threads = 256;
-  selfsim_fwd_reduce_kernel<<<(n + 1 + threads - 1) / threads, threads, 0,
-                              stream>>>(total_part, tx_part, ty_part, n, nt,
-                                        nt * nt, loss, tx, ty);
+  const int nt = (n + SF_TILE - 1) / SF_TILE;
+  if (ks == 1)
+    err = sf_launch<1>(xh, yh, cx, cy, n, c, nt, total_part, tx_part,
+                       ty_part, signs, sp, stream);
+  else if (ks == 2)
+    err = sf_launch<2>(xh, yh, cx, cy, n, c, nt, total_part, tx_part,
+                       ty_part, signs, sp, stream);
+  else if (ks == 4)
+    err = sf_launch<4>(xh, yh, cx, cy, n, c, nt, total_part, tx_part,
+                       ty_part, signs, sp, stream);
+  else
+    return (int)cudaErrorInvalidValue;
+  if (err != cudaSuccess) return (int)err;
+  selfsim_fwd_reduce_kernel<<<(n + SF_REDUCE_THREADS - 1) /
+                                      SF_REDUCE_THREADS + 1,
+                              SF_REDUCE_THREADS, 0, stream>>>(
+      total_part, tx_part, ty_part, n, ks * nt, ks * (nt * (nt + 1) / 2),
+      loss, tx, ty);
   return (int)cudaGetLastError();
 }
 

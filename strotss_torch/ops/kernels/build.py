@@ -38,7 +38,8 @@ _F = ctypes.c_float
 #: C signatures of the exported functions: name -> (library, argtypes).
 _SIGNATURES = {
     "remd_mins": ("remd", [_P, _P] + [_I] * 5 + [_P] * 8 + [_P]),
-    "selfsim_fwd": ("selfsim", [_P] * 4 + [_I, _I] + [_P] * 7 + [_I, _P]),
+    "selfsim_fwd": ("selfsim", [_P] * 4 + [_I, _I] + [_P] * 7 + [_I] * 2
+                    + [_P]),
     "selfsim_bwd": ("selfsim", [_P] * 7 + [_I] * 3 + [_P] * 2 + [_P]),
     "block1_fwd": ("block1", [_P] * 5 + [_I, _I] + [_P] * 2 + [_P]),
     "block1_bwd": ("block1", [_P] * 6 + [_I, _I] + [_P] * 2 + [_P]),

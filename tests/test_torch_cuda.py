@@ -186,6 +186,11 @@ def test_selfsim_on_card(cuda_device, n, c):
             - (1.0 - yh @ yh.T) / cy[None, :]).abs()
     flips = signs != p_signs
     assert bool((diff[flips] <= 1e-5 * diff.max()).all())
+    # t on the kernel's own signs: |t_j| <= sum_i |D_ij| = c_j
+    s = signs.to(torch.float32)
+    for t, h, cv in ((tx, xh, cx), (ty, yh, cy)):
+        want_t = torch.sum(s * (1.0 - h @ h.T), dim=0)
+        assert bool(((t - want_t).abs() <= 1e-5 * cv).all())
     got = selfsim.selfsim_bwd(xh, yh, cx, cy, tx, ty, signs)
     assert (selfsim.selfsim_fwd.launches,
             selfsim.selfsim_bwd.launches) == (before[0] + 1, before[1] + 1)
@@ -207,17 +212,45 @@ def test_selfsim_on_card(cuda_device, n, c):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,c", [(1024, 2179), (1000, 2179), (200, 35)])
+@pytest.mark.parametrize("split", selfsim.FWD_SPLITS)
+def test_selfsim_fwd_splits_on_card(cuda_device, n, c, split):
+    """K2a with each of 1, 2 and 4 blocks a tile pair (a cluster adding
+    its partial Gram tiles in rank order): loss to rtol 1e-5, signs off
+    the plain version's only within rounding of A - B = 0, t on its own
+    signs to 1e-5 of c_j, and the same bits on a second call."""
+    x, y = _rand(n + 5, (n, c), cuda_device), _rand(n + 6, (n, c),
+                                                    cuda_device)
+    xh, yh, _, _, cx, cy = selfsim._prep(x, y)
+    got = selfsim.selfsim_fwd(xh, yh, cx, cy, split)
+    again = selfsim.selfsim_fwd(xh, yh, cx, cy, split)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    loss, tx, ty, signs = got
+    p_loss, _, _, p_signs = selfsim.selfsim_fwd_plain(xh, yh, cx, cy)
+    torch.testing.assert_close(loss, p_loss, rtol=1e-5, atol=0)
+    diff = ((1.0 - xh @ xh.T) / cx[None, :]
+            - (1.0 - yh @ yh.T) / cy[None, :]).abs()
+    assert bool((diff[signs != p_signs] <= 1e-5 * diff.max()).all())
+    s = signs.to(torch.float32)
+    for t, h, cv in ((tx, xh, cx), (ty, yh, cy)):
+        want_t = torch.sum(s * (1.0 - h @ h.T), dim=0)
+        assert bool(((t - want_t).abs() <= 1e-5 * cv).all())
+
+
+@pytest.mark.cuda
 def test_selfsim_bwd_repeat_call_allocates_outputs_only(cuda_device,
                                                         monkeypatch):
-    """A repeat K2b call makes one device allocation (both outputs share
-    it; there is no scratch), enters no device context while the tensors'
-    device is current, and its C entry sets no kernel attribute again."""
+    """A repeat K2a call makes two device allocations (loss and t share
+    one, the signs the other; its scratch is kept), a repeat K2b call one
+    (both outputs share it; there is no scratch); neither enters a device
+    context while the tensors' device is current, and neither C entry sets
+    a kernel attribute again."""
     n, c = 1024, 2179
     x, y = _rand(1, (n, c), cuda_device), _rand(2, (n, c), cuda_device)
     xh, yh, _, _, cx, cy = selfsim._prep(x, y)
     loss, tx, ty, signs = selfsim.selfsim_fwd(xh, yh, cx, cy)
     first = selfsim.selfsim_bwd(xh, yh, cx, cy, tx, ty, signs)
-    setups = selfsim.bwd_setups()
+    setups = (selfsim.fwd_setups(), selfsim.bwd_setups())
     contexts = []
 
     class RecordingDevice(torch.cuda.device):
@@ -225,15 +258,25 @@ def test_selfsim_bwd_repeat_call_allocates_outputs_only(cuda_device,
             contexts.append(args)
             super().__init__(*args)
 
-    torch.cuda.synchronize()
-    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    def allocations():  # outside the patch: synchronize enters a context
+        torch.cuda.synchronize()
+        return torch.cuda.memory_stats()["allocation.all.allocated"]
+
+    before = allocations()
+    with monkeypatch.context() as patch:
+        patch.setattr(torch.cuda, "device", RecordingDevice)
+        fwd_again = selfsim.selfsim_fwd(xh, yh, cx, cy)
+    mid = allocations()
     with monkeypatch.context() as patch:
         patch.setattr(torch.cuda, "device", RecordingDevice)
         again = selfsim.selfsim_bwd(xh, yh, cx, cy, tx, ty, signs)
-    torch.cuda.synchronize()
-    after = torch.cuda.memory_stats()["allocation.all.allocated"]
-    assert after == before + 1, f"{after - before} allocations"
-    assert contexts == [] and selfsim.bwd_setups() == setups
+    after = allocations()
+    assert mid == before + 2, f"K2a: {mid - before} allocations"
+    assert after == mid + 1, f"K2b: {after - mid} allocations"
+    assert contexts == []
+    assert (selfsim.fwd_setups(), selfsim.bwd_setups()) == setups
+    for a, b in zip((loss, tx, ty, signs), fwd_again):
+        assert torch.equal(a, b)
     assert torch.equal(first[0], again[0]) and torch.equal(first[1],
                                                            again[1])
 

@@ -75,7 +75,7 @@ _EDITS = {
         "  big = __float_as_uint(v);\n  small = big;")],
     "big_only": [(_THREE, _ONE)],
     "loads_only": [("      tc_mma(part, f, kk == 0);\n", "")],
-    "no_chunk8": [("  if (L.ok8) {\n", "  if (false) {\n")],
+    "no_chunk8": [("  if (with8 && L.ok8) {\n", "  if (false) {\n")],
 }
 _CHECKED = ("as_is", "cvt_rounding")
 
