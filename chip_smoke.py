@@ -11,10 +11,12 @@ K1's routes: tensor cores for the features, CUDA cores for YUV; self-
 similarity forward and backward at N = 1024 and 32769, VGG block1 forward
 and backward at the 512 px content and style shapes, the 64 px content
 shape and a shape smaller than one forward tile, the Sinkhorn LSE pass
-at 32769 x 32769 and a ragged shape, and the streamed Sinkhorn loss and
-gradient), runs a short slice of the 64 px scale with the kernels and
-with the plain versions, and then drives the default stylization (VGG16,
-9 taps, 1024 samples, 4 scales to 512 px) through
+at 32769 x 32769, a ragged shape and a shape just above its route
+threshold, with its operands' preparation held to their plain layout,
+and the streamed Sinkhorn loss and gradient), runs a short slice of the
+64 px scale with the kernels and with the plain versions, and then drives
+the default stylization (VGG16, 9 taps, 1024 samples, 4 scales to 512 px)
+through
 ``strotss_torch.stylize``, counting each kernel's launches, and profiles
 10 steps a scale. Last it drives the ``--sinkhorn`` path twice:
 below the memory gate (BASELINE config 5 at reduced depth, the plain
@@ -677,9 +679,13 @@ def _lse64(x, y, logv, lam, distance, rows=2048):
         dim=1) for i in range(0, x.shape[0], rows)])
 
 
-def check_lse(n, m, c, distance, seed, rates, reps):
+def check_lse(n, m, c, distance, seed, rates, reps, prep_check=False):
     """K4 against its plain version at one shape, lam = 10, logv spanning
-    tens of units; returns measurements."""
+    tens of units, the operands prepared once as a solve prepares them
+    (``prep_check``: the preparation kernel held to ``prepare_plain``);
+    returns measurements. ``library_ms`` times one PyTorch call of the
+    same function that the port never makes: logsumexp over the
+    materialized distances, x and y normalized beforehand, TF32 off."""
     import torch
 
     from strotss_torch.ops.kernels import sinkhorn
@@ -687,9 +693,27 @@ def check_lse(n, m, c, distance, seed, rates, reps):
     lam = 10.0
     x, y = _sinkhorn_rows(seed, n, m, c, distance)
     logv = 5.0 * _inputs(seed + 2, (m,))
-    out = sinkhorn.lse_pass(x, y, logv, lam, distance)
-    check(torch.equal(out, sinkhorn.lse_pass(x, y, logv, lam, distance)),
+    prep = sinkhorn.prepare(x, y)
+    if prep_check:
+        for got, want in zip(prep, (sinkhorn.prepare_plain(x),
+                                    sinkhorn.prepare_plain(y))):
+            check(torch.equal(got.parts, want.parts),
+                  f"sinkhorn_prep {n}x{m}x{c}: parts differ from the plain "
+                  "layout")
+            check(_grad_err(got.norms, want.norms) <= 1e-6,
+                  f"sinkhorn_prep {n}x{m}x{c}: norms "
+                  f"{_grad_err(got.norms, want.norms)} of max from plain")
+            del want
+
+    def call():
+        return sinkhorn.lse_pass(x, y, logv, lam, distance, prep)
+
+    out = call()
+    check(torch.equal(out, call()),
           f"sinkhorn_lse {n}x{m}x{c}: two runs differ")
+    check(torch.equal(out, sinkhorn.lse_pass(x, y, logv, lam, distance)),
+          f"sinkhorn_lse {n}x{m}x{c}: the prepared operands give other bits "
+          "than a call that prepares its own")
     plain = sinkhorn.lse_pass_plain(x, y, logv, lam, distance)
     ref = _lse64(x, y, logv, lam, distance)
     # 1e-5 of max|out| against the plain version (float32 sums in another
@@ -701,29 +725,57 @@ def check_lse(n, m, c, distance, seed, rates, reps):
           f"sinkhorn_lse {n}x{m}x{c} {distance}: err {err} of max|out| "
           f"(vs float64 {err64}, plain float32 vs float64 {plain64})")
     del ref
-    ms = time_ms(lambda: sinkhorn.lse_pass(x, y, logv, lam, distance), reps,
-                 1)
-    dev_ms = device_ms(lambda: sinkhorn.lse_pass(x, y, logv, lam, distance),
-                       ("sinkhorn_lse_kernel",), min(reps, 20))
+    torch.cuda.empty_cache()
+    ms = time_ms(call, reps, 1)
+    dev_ms = device_ms(call, ("sinkhorn_lse_", "sinkhorn_combine"),
+                       min(reps, 20))
+    prep_ms = time_ms(lambda: sinkhorn.prepare(x, y), reps, 1)
     plain_ms = time_ms(lambda: sinkhorn.lse_pass_plain(x, y, logv, lam,
                                                        distance), reps, 1)
     torch.cuda.empty_cache()
+    xn = x * torch.rsqrt((x * x).sum(1, keepdim=True).clamp(min=1e-12))
+    yn = y * torch.rsqrt((y * y).sum(1, keepdim=True).clamp(min=1e-12))
+    scale = 1.0 / c ** 0.5
+
+    def lib():
+        d = 0.0
+        if distance != "l2":
+            d = 1.0 - xn @ yn.T
+        if distance != "cosine":
+            d = d + torch.cdist(x, y) * scale
+        return torch.logsumexp(logv[None, :] - lam * d, 1)
+
+    library_ms = time_ms(lib, reps, 1)
+    del xn, yn
+    torch.cuda.empty_cache()
     # one dot product of length C per pair serves both distances of
     # 'both'; per pair about 8 more operations (distance, z, max, sum) and
-    # one expf, plus one sqrtf for the L2 part
+    # one expf, plus one sqrtf for the L2 part. On the tensor-core route
+    # each product is three TF32 products.
+    route = sinkhorn.route(c)
     flops = 2.0 * n * m * c + 8.0 * n * m
     sfu = float(n) * m * (1 if distance == "cosine" else 2)
     nbytes = 4.0 * (n * c + m * c + m + n)
-    b_ms, b_by = bound_ms(flops, nbytes, rates)
-    kind = "fp32"
-    if sfu / rates["sfu"] * 1e3 > b_ms:
-        b_ms, b_by, kind = sfu / rates["sfu"] * 1e3, "operations", "sfu"
-    res = {"shape": [n, m, c], "distance": distance,
+    fp32_ms, fp32_by = bound_ms(flops, nbytes, rates)
+    times = {"fp32": fp32_ms, "sfu": sfu / rates["sfu"] * 1e3}
+    if route == "tensor_cores":
+        times = {"3xtf32": 6.0 * n * m * c / rates["tf32"] * 1e3,
+                 "fp32": 8.0 * n * m / rates["fp32"] * 1e3,
+                 "sfu": times["sfu"]}
+    kind = max(times, key=times.get)
+    b_ms, b_by = times[kind], "operations"
+    if fp32_by == "bytes" and fp32_ms > b_ms:
+        b_ms, b_by, kind = fp32_ms, "bytes", "bytes"
+    res = {"shape": [n, m, c], "distance": distance, "route_taken": route,
+           "split": sinkhorn.lse_split(n, m, c,
+                                       torch.cuda.get_device_properties(0)
+                                       .multi_processor_count),
            "max_abs_err": float((out - plain).abs().max()),
            "err_of_max": err, "err_of_max_vs_f64": err64,
            "plain_err_of_max_vs_f64": plain64, "ms": ms, "device_ms": dev_ms,
-           "plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms,
-           "bound_by": b_by, "bound_ops": kind}
+           "prep_ms": prep_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "bound_ops": kind,
+           "bound_fp32_cores_ms": max(fp32_ms, times["sfu"])}
     emit({"phase": "kernel", "name": "sinkhorn_lse", **res})
     return res
 
@@ -744,10 +796,11 @@ def check_streamed(n, c, distance, seed):
     lam, iters = 10.0, 30
     x, y = _sinkhorn_rows(seed, n, n, c, distance)
     yk = y.clone().requires_grad_(True)
-    before = sinkhorn.lse_pass.launches
+    before = (sinkhorn.lse_pass.launches, sinkhorn.prepare.launches)
     val = losses.sinkhorn(x, yk, distance, lam, iters, impl="kernel")
     (gk,) = torch.autograd.grad(val, [yk])
-    launches = sinkhorn.lse_pass.launches - before
+    launches = sinkhorn.lse_pass.launches - before[0]
+    preps = sinkhorn.prepare.launches - before[1]
     yp = y.clone().requires_grad_(True)
     plain = losses.sinkhorn(x, yp, distance, lam, iters, impl="plain")
     (gu,) = torch.autograd.grad(plain, [yp])
@@ -769,10 +822,12 @@ def check_streamed(n, c, distance, seed):
     cos = float(torch.nn.functional.cosine_similarity(
         gk.double().flatten(), gu.double().flatten(), dim=0))
     res = {"n": n, "c": c, "distance": distance, "launches": launches,
-           "loss": val, "plain_loss": plain, "rel_err": rel,
+           "prep_launches": preps, "loss": val, "plain_loss": plain,
+           "rel_err": rel,
            "grad_err_vs_frozen_plan": gerr, "cos_vs_unrolled_grad": cos}
     emit({"phase": "kernel", "name": "sinkhorn_streamed", **res})
-    check(launches == 2 * iters, f"sinkhorn_streamed: {launches} launches")
+    check(launches == 2 * iters and preps == 1,
+          f"sinkhorn_streamed: {launches} launches, {preps} preparations")
     check(rel <= 1e-4, f"sinkhorn_streamed {distance}: loss rel err {rel}")
     check(gerr <= 1e-4, f"sinkhorn_streamed {distance}: grad err {gerr}")
     return res
@@ -804,9 +859,16 @@ def phase_kernels(rates):
     check_block1(5, 7, 16, rates)  # smaller than one of K3a's tiles
     # the --sinkhorn path above the memory gate: N = M = 32769 for the
     # feature term (C = 2179) and the YUV term (C = 3); a ragged shape
-    lse_main = check_lse(32769, 32769, 2179, "cosine", 17, rates, reps=3)
-    lse_yuv = check_lse(32769, 32769, 3, "both", 19, rates, reps=5)
-    check_lse(4099, 3001, 2179, "both", 21, rates, reps=10)
+    lse_main = check_lse(32769, 32769, 2179, "cosine", 17, rates, reps=3,
+                         prep_check=True)
+    lse_yuv = check_lse(32769, 32769, 3, "both", 19, rates, reps=5,
+                        prep_check=True)
+    lse_ragged = check_lse(4099, 3001, 2179, "both", 21, rates, reps=10)
+    # just above the route threshold (C = 32)
+    lse_35 = check_lse(4099, 3001, 35, "cosine", 22, rates, reps=10)
+    check([r["route_taken"] for r in (lse_main, lse_yuv, lse_ragged, lse_35)]
+          == ["tensor_cores", "cuda_cores", "tensor_cores", "tensor_cores"],
+          "sinkhorn_lse routes by C")
     check_streamed(4096, 2179, "cosine", 23)
     check_streamed(4096, 3, "both", 25)
     # self-similarity at the path's N = 32769, its first run above 1024
@@ -960,7 +1022,8 @@ def _counted():
             "selfsim_bwd": selfsim.selfsim_bwd,
             "block1_fwd": block1.block1_fwd,
             "block1_bwd": block1.block1_bwd,
-            "sinkhorn_lse": sinkhorn.lse_pass}
+            "sinkhorn_lse": sinkhorn.lse_pass,
+            "sinkhorn_prep": sinkhorn.prepare}
 
 
 def _run_counted(content, style, cfg):
@@ -1025,7 +1088,7 @@ def phase_main():
     # style at each scale
     want = {"remd_mins": 2 * steps, "selfsim_fwd": steps,
             "selfsim_bwd": steps, "block1_fwd": steps + 2 * cfg.levels,
-            "block1_bwd": steps, "sinkhorn_lse": 0}
+            "block1_bwd": steps, "sinkhorn_lse": 0, "sinkhorn_prep": 0}
     check(launches == want, f"main: launches {launches}, want {want}")
     return launches
 
@@ -1060,9 +1123,10 @@ def phase_sinkhorn(cosine_pass_ms):
           "reduced depth: use_sinkhorn, 5 scales to 1024 px, 2048 samples, "
           "10 steps a scale, plain materialized Sinkhorn", **summary})
     _check_curves("sinkhorn (a)", info, falls=True)
-    check(launches["sinkhorn_lse"] == 0 and launches["remd_mins"] == 0,
-          f"sinkhorn (a): launches {launches}, want no sinkhorn_lse and no "
-          "remd_mins")
+    check(launches["sinkhorn_lse"] == 0 and launches["sinkhorn_prep"] == 0
+          and launches["remd_mins"] == 0,
+          f"sinkhorn (a): launches {launches}, want no sinkhorn_lse, "
+          "sinkhorn_prep or remd_mins")
     check(img.dtype == torch.uint8 and max(img.shape[:2]) == 1024,
           f"sinkhorn (a): output {img.dtype} {tuple(img.shape)}")
 
@@ -1100,7 +1164,8 @@ def phase_sinkhorn(cosine_pass_ms):
     _check_curves("sinkhorn (b)", info, falls=False)
     want = {"remd_mins": 0, "selfsim_fwd": steps, "selfsim_bwd": steps,
             "block1_fwd": steps + 2 * cfg_b.levels, "block1_bwd": steps,
-            "sinkhorn_lse": steps * 2 * cfg_b.sinkhorn_iters * 2}
+            "sinkhorn_lse": steps * 2 * cfg_b.sinkhorn_iters * 2,
+            "sinkhorn_prep": steps * 2}
     check(launches == want, f"sinkhorn (b): launches {launches}, want {want}")
     hw = resize_max_hw(*content.shape[1:3], cfg_b.scale_sizes()[-1])
     check(img.dtype == torch.uint8 and tuple(img.shape) == (*hw, 3),
@@ -1206,12 +1271,16 @@ _K1_FIELDS = ("route_taken", "host_ms", "tile_device_ms", "reduce_device_ms",
 _K2_FIELDS = ("host_ms", "bound_fp32_cores_ms", "sign_flips", "split")
 
 
+#: K4's own fields in the kernels line
+_K4_FIELDS = ("library_ms", "split", "prep_ms", "prep_launches")
+
+
 def _with_yuv(main, yuv):
     """The feature term's row, with the YUV term's times beside it."""
     entry = dict(main, max_abs_err=max(main["max_abs_err"],
                                        yuv["max_abs_err"]))
     entry["yuv_both_c3"] = {k: yuv[k] for k in _TIMES + _K1_FIELDS
-                            if k in yuv}
+                            + _K4_FIELDS if k in yuv}
     return entry
 
 
@@ -1228,7 +1297,9 @@ def kernels_line(meas, launches):
         rows.append((f"selfsim_{name}", row))
     rows.append(("block1_fwd", meas["block1"]["fwd"]))
     rows.append(("block1_bwd", meas["block1"]["bwd"]))
-    rows.append(("sinkhorn_lse", _with_yuv(*meas["sinkhorn_lse"])))
+    rows.append(("sinkhorn_lse", dict(_with_yuv(*meas["sinkhorn_lse"]),
+                                      prep_launches=launches[
+                                          "sinkhorn_prep"])))
     out = []
     for name, m in rows:
         out.append({
@@ -1240,7 +1311,7 @@ def kernels_line(meas, launches):
             "device_ms": m["device_ms"],
             **{k: v for k, v in m.items() if k in (
                 "yuv_both_c3", "n_32769", "fwd_bwd") + _K1_FIELDS
-               + _K2_FIELDS},
+               + _K2_FIELDS + _K4_FIELDS[1:]},
         })
     return {"kernels": out}
 
@@ -1274,8 +1345,9 @@ def main() -> int:
         launches = phase_main()
         phase_profile(vgg_params)
         cosine_pass_ms = meas["sinkhorn_lse"][0]["ms"]
-        launches["sinkhorn_lse"] = phase_sinkhorn(cosine_pass_ms)[
-            "sinkhorn_lse"]
+        sk = phase_sinkhorn(cosine_pass_ms)
+        launches.update(sinkhorn_lse=sk["sinkhorn_lse"],
+                        sinkhorn_prep=sk["sinkhorn_prep"])
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

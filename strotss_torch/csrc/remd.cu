@@ -71,10 +71,10 @@
 // CUDA-core route (`remd_tile_kernel`, C < REMD_TC_MIN_C; the YUV term,
 // C = 3): each block takes one 64 x 64 tile, forms its dot products with
 // fp32 FMAs from 64 x 32 slices of x and y in shared memory (`tile_dot`,
-// tile.cuh), turns them into distances (`tile_dist`, shared with
-// sinkhorn.cu), and writes the tile's row and column minima with their
-// argmins. At C = 3 the tensor cores save nothing, and 'both' there is
-// ill-conditioned in f32, so it keeps plain f32 products.
+// tile.cuh), turns them into distances (`tile_dist`, whose floors
+// sinkhorn.cu's `sk_dist` repeats), and writes the tile's row and column
+// minima with their argmins. At C = 3 the tensor cores save nothing, and
+// 'both' there is ill-conditioned in f32, so it keeps plain f32 products.
 #include <stdint.h>
 
 #include "tc.cuh"

@@ -1,8 +1,9 @@
-// Tensor-core building blocks shared by remd.cu (K1) and selfsim.cu (K2a,
-// K2b): cp.async copies into shared memory, the TF32 split of a float32
-// value, the three-product step of mma.sync on TF32 fragments ("3xTF32"),
-// and the stages of row-major (rows, C) matrices as 16-byte aligned row
-// windows with the fragment reads from them (K1 and K2a).
+// Tensor-core building blocks shared by remd.cu (K1), selfsim.cu (K2a,
+// K2b) and sinkhorn.cu (K4: the split and the once-per-device kernel
+// attribute): cp.async copies into shared memory, the TF32 split of a
+// float32 value, the three-product step of mma.sync on TF32 fragments
+// ("3xTF32"), and the stages of row-major (rows, C) matrices as 16-byte
+// aligned row windows with the fragment reads from them (K1 and K2a).
 //
 // A float32 product computed this way: each operand v is split into TF32
 // parts big = v rounded to TF32 and small = (v - big) rounded to TF32 (both

@@ -1,4 +1,5 @@
-// Shared pieces of the hand-written fp32 kernels (remd.cu, sinkhorn.cu).
+// Shared pieces of the hand-written fp32 kernels of remd.cu; sinkhorn.cu
+// takes the distance codes.
 //
 // Every kernel here works on 64 x 64 output tiles with 256 threads. Thread
 // (ty, tx) of the 16 x 16 layout owns rows ty + 16*a and columns tx + 16*b,

@@ -43,7 +43,10 @@ _SIGNATURES = {
     "selfsim_bwd": ("selfsim", [_P] * 7 + [_I] * 3 + [_P] * 2 + [_P]),
     "block1_fwd": ("block1", [_P] * 5 + [_I, _I] + [_P] * 2 + [_P]),
     "block1_bwd": ("block1", [_P] * 6 + [_I, _I] + [_P] * 2 + [_P]),
-    "sinkhorn_lse": ("sinkhorn", [_P] * 3 + [_I] * 4 + [_F] + [_P, _P]),
+    "sinkhorn_prep": ("sinkhorn", [_P, _I, _P, _I, _I, _P, _P, _I, _P, _P,
+                                   _I, _P]),
+    "sinkhorn_lse": ("sinkhorn", [_P, _P, _I, _P, _P, _I, _P] + [_I] * 4
+                     + [_F, _I, _P, _P, _P]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -383,12 +383,91 @@ def test_sinkhorn_lse_on_card(cuda_device, n, m, c, dist):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,m,c,dist", [
+    (129, 300, 40, "cosine"), (129, 300, 40, "both"), (257, 513, 64, "l2"),
+    (1000, 777, 2179, "both"), (130, 70, 35, "cosine")])
+def test_sinkhorn_lse_tensor_cores_ragged_on_card(cuda_device, n, m, c,
+                                                  dist):
+    """K4's tensor-core route at ragged shapes (a last strip of one row, a
+    partial last column tile), each split from 1 to the tiles, against
+    the plain version; the C entry's constants are the Python ones."""
+    lib = build.library("sinkhorn")
+    assert lib.sinkhorn_tc_min_c() == sinkhorn.TC_MIN_C
+    assert lib.sinkhorn_prep_channels(c) == sinkhorn.prep_channels(c)
+    x, y = _rand(n, (n, c), cuda_device), _rand(m + 7, (m, c), cuda_device)
+    logv = 5.0 * _rand(m + 9, (m,), cuda_device)
+    prep = sinkhorn.prepare(x, y)
+    want = sinkhorn.lse_pass_plain(x, y, logv, 10.0, dist)
+    tiles = -(-m // sinkhorn.tile_shape(c)[1])
+    for split in range(1, min(tiles, 4) + 1):
+        got = sinkhorn.lse_pass(x, y, logv, 10.0, dist, prep, split)
+        assert _err(got, want) <= 1e-5, split
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [35, 3])
+def test_sinkhorn_prepared_form_on_card(cuda_device, c):
+    """The prepared operands are prepare_plain's layout (parts bit for bit,
+    norms to float32 rounding), and passes that reuse them give the bits
+    of calls that prepare their own, in both orientations."""
+    x, y = _rand(3, (300, c), cuda_device), _rand(4, (200, c), cuda_device)
+    lu, lv = _rand(5, (300,), cuda_device), _rand(6, (200,), cuda_device)
+    before = sinkhorn.prepare.launches
+    px, py = sinkhorn.prepare(x, y)
+    assert sinkhorn.prepare.launches == before + 1
+    for got, want in ((px, sinkhorn.prepare_plain(x)),
+                      (py, sinkhorn.prepare_plain(y))):
+        assert torch.equal(got.parts, want.parts)
+        assert _err(got.norms, want.norms) <= 1e-6
+    for _ in range(2):
+        assert torch.equal(
+            sinkhorn.lse_pass(x, y, lv, 10.0, "both", (px, py)),
+            sinkhorn.lse_pass(x, y, lv, 10.0, "both"))
+        assert torch.equal(
+            sinkhorn.lse_pass(y, x, lu, 10.0, "both", (py, px)),
+            sinkhorn.lse_pass(y, x, lu, 10.0, "both"))
+
+
+@pytest.mark.cuda
+def test_sinkhorn_lse_repeat_call_allocates_output_only(cuda_device,
+                                                        monkeypatch):
+    """With the operands prepared, a repeated call on the same stream makes
+    one device allocation (its output; the chunks' partials are kept),
+    enters no device context, and the C entry sets no kernel attribute
+    again."""
+    x, y = _rand(1, (1024, 2179), cuda_device), _rand(2, (1000, 2179),
+                                                      cuda_device)
+    logv = _rand(3, (1000,), cuda_device)
+    prep = sinkhorn.prepare(x, y)
+    first = sinkhorn.lse_pass(x, y, logv, 10.0, "cosine", prep)
+    setups = sinkhorn.tc_setups()
+    contexts = []
+
+    class RecordingDevice(torch.cuda.device):
+        def __init__(self, *args):
+            contexts.append(args)
+            super().__init__(*args)
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    with monkeypatch.context() as patch:
+        patch.setattr(torch.cuda, "device", RecordingDevice)
+        again = sinkhorn.lse_pass(x, y, logv, 10.0, "cosine", prep)
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_stats()["allocation.all.allocated"]
+    assert after == before + 1, f"{after - before} allocations"
+    assert contexts == [] and sinkhorn.tc_setups() == setups
+    assert torch.equal(first, again)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dist", ["cosine", "both"])
 def test_sinkhorn_streamed_on_card(cuda_device, dist):
     x, y = _rand(1, (1000, 64), cuda_device), _rand(2, (1000, 64),
                                                     cuda_device)
-    before = sinkhorn.lse_pass.launches
+    before = (sinkhorn.lse_pass.launches, sinkhorn.prepare.launches)
     got = losses.sinkhorn(x, y, dist, 10.0, 30, impl="kernel")
-    assert sinkhorn.lse_pass.launches == before + 60
+    assert sinkhorn.lse_pass.launches == before[0] + 60
+    assert sinkhorn.prepare.launches == before[1] + 1
     want = losses.sinkhorn(x, y, dist, 10.0, 30, impl="plain")
     torch.testing.assert_close(got, want, rtol=1e-4, atol=0)

@@ -244,3 +244,224 @@ def test_cli_sinkhorn_runs_on_cpu(tmp_path):
                     "--max_size", "48"])
     assert rc == 0 and out.exists()
     assert Image.open(out).size == (64, 53)
+
+
+# --- K4's layout, arithmetic and order of work (its kernel runs on a card) ---
+
+def _f32(v):
+    return torch.tensor(v, dtype=torch.float32)
+
+
+def _k4_dot(px, py, n, m, c):
+    """The dot products K4 forms. Tensor-core route: the three TF32
+    products of each period of stages exact (float64), rounded to float32,
+    and the periods added in float32 (csrc/sinkhorn.cu: SK_PERIOD stages
+    of 16 channels); CUDA-core route: float32 products."""
+    if c < TS.TC_MIN_C:
+        return px.parts[:n] @ py.parts[:m].T
+    xb, xsm = px.parts[0, :n].double(), px.parts[1, :n].double()
+    yb, ysm = py.parts[0, :m].double(), py.parts[1, :m].double()
+    cp = px.parts.shape[2]
+    width = 16 * TS.TC_PERIOD
+    dot = torch.zeros((n, m), dtype=torch.float32)
+    for k0 in range(0, cp, width):
+        s = slice(k0, k0 + width)
+        dot = dot + (xb[:, s] @ ysm[:, s].T + xsm[:, s] @ yb[:, s].T
+                     + xb[:, s] @ yb[:, s].T).float()
+    return dot
+
+
+def _k4_z(dot, px, py, n, m, c, logv, lam, dist):
+    """z = -lam d + logv_j with the kernel's formulas (``sk_dist``)."""
+    xs, rx = px.norms[0, :n, None], px.norms[1, :n, None]
+    ys, ry = py.norms[0, None, :m], py.norms[1, None, :m]
+    d = torch.zeros_like(dot)
+    if dist != "l2":
+        d = 1.0 - (dot * rx) * ry
+    if dist != "cosine":
+        inv_c = _f32(1.0) / c
+        d = d + torch.sqrt(torch.clamp(xs + ys - 2.0 * dot, min=1e-6) * inv_c)
+    return -lam * d + logv[None, :]
+
+
+def _merge(a, b):
+    nm = torch.maximum(a[0], b[0])
+    return nm, a[1] * torch.exp(a[0] - nm) + b[1] * torch.exp(b[0] - nm)
+
+
+def _k4_model(x, y, logv, lam, dist, split):
+    """K4's order of work in torch on the CPU: the prepared operands, the
+    products (:func:`_k4_dot`), then per chunk of column tiles the running
+    (max, sum) of each thread (tensor cores: the lane quad's four threads
+    own the columns 8j + 2t + e of a tile, folded tile by tile, then
+    merged t ^ 1, t ^ 2; CUDA cores: one thread a row, the max raised
+    column by column, each tile summed apart), and the chunks combined in
+    order."""
+    n, c = x.shape
+    m = y.shape[0]
+    px, py = TS.prepare_plain(x), TS.prepare_plain(y)
+    z = _k4_z(_k4_dot(px, py, n, m, c), px, py, n, m, c, logv, lam, dist)
+    neg = torch.full((n,), -3.4e38)
+    zero = torch.zeros(n)
+    _, bn = TS.tile_shape(c)
+    tiles = -(-m // bn)
+    parts = []
+    for q in range(split):
+        cols_of = [range(t * bn, min(m, (t + 1) * bn))
+                   for t in TS.chunk_tiles(q, tiles, split)]
+        if c >= TS.TC_MIN_C:
+            runs = []
+            for t4 in range(4):
+                mx, sm = neg.clone(), zero.clone()
+                for cols in cols_of:
+                    mine = [j for j in cols if (j - cols[0]) % 8 // 2 == t4]
+                    if not mine:
+                        continue
+                    nm = torch.maximum(mx, z[:, mine].max(dim=1).values)
+                    s = zero.clone()
+                    for j in mine:
+                        s = s + torch.exp(z[:, j] - nm)
+                    sm, mx = sm * torch.exp(mx - nm) + s, nm
+                runs.append((mx, sm))
+            pair = [_merge(runs[0], runs[1]), _merge(runs[2], runs[3])]
+            parts.append(_merge(*pair))
+        else:
+            mx, sm = neg.clone(), zero.clone()
+            for cols in cols_of:
+                loc = zero.clone()
+                for j in cols:
+                    up = z[:, j] > mx
+                    sc = torch.where(up, torch.exp(mx - z[:, j]), _f32(1.0))
+                    sm, loc = sm * sc, loc * sc
+                    mx = torch.where(up, z[:, j], mx)
+                    loc = loc + torch.exp(z[:, j] - mx)
+                sm = sm + loc
+            parts.append((mx, sm))
+    big = torch.stack([p[0] for p in parts]).max(dim=0).values
+    total = zero.clone()
+    for mx, sm in parts:
+        total = total + sm * torch.exp(mx - big)
+    return torch.log(torch.clamp(total, min=1e-38)) + big
+
+
+@pytest.mark.parametrize("dist", ["cosine", "l2", "both"])
+@pytest.mark.parametrize("n,m,c,split", [
+    (129, 300, 40, 2),   # tensor cores: a last strip of one row, a
+    (129, 300, 40, 1),   # partial last tile; one chunk or two
+    (130, 70, 35, 1),    # C = 35, just above the route threshold
+    (1025, 300, 3, 2),   # CUDA cores: a last strip of one row
+])
+def test_k4_model_matches_pallas(n, m, c, split, dist):
+    """K4's order of work (:func:`_k4_model`) against the JAX package's
+    Pallas kernel in interpret mode, to 1e-5 of max|out|."""
+    x, y = _rand(n + c, (n, c)), _rand(m + c + 1, (m, c))
+    logv = 5.0 * _rand(m, (m,))
+    want = JS.lse_pass(jnp.asarray(x), jnp.asarray(y), jnp.asarray(logv),
+                       10.0, dist, interpret=True)
+    got = _k4_model(_t(x), _t(y), _t(logv), 10.0, dist, split)
+    _close_of_max(got.numpy(), want, 1e-5)
+
+
+@pytest.mark.parametrize("c", [3, 35, 2179])
+def test_k4_prepared_layout(c):
+    """Rows padded to ROW_PAD and channels to prep_channels(C) with zeros;
+    on the tensor-core route the big and small TF32 parts (low 13 bits 0)
+    give back each value to 2^-22 of it; the norms and their floored
+    inverse square roots."""
+    n = 300
+    x = _t(_rand(c, (n, c), positive=c == 3))
+    p = TS.prepare_plain(x)
+    rows, cp = TS.ROW_PAD * -(-n // TS.ROW_PAD), TS.prep_channels(c)
+    sq = (x.double() ** 2).sum(1)
+    np.testing.assert_allclose(p.norms[0, :n].numpy(), sq.numpy(), rtol=1e-5)
+    np.testing.assert_allclose(p.norms[1, :n].numpy(),
+                               (1.0 / sq.sqrt()).numpy(), rtol=1e-5)
+    assert (p.n, p.c) == (n, c) and tuple(p.norms.shape) == (2, rows)
+    floor = 1.0 / torch.sqrt(_f32(1e-12))
+    assert not p.norms[0, n:].any() and p.norms[1, n:].eq(floor).all()
+    if c < TS.TC_MIN_C:
+        assert tuple(p.parts.shape) == (rows, cp) and cp == -(-c // 4) * 4
+        assert torch.equal(p.parts[:n, :c], x)
+        assert not p.parts[n:].any() and not p.parts[:, c:].any()
+        return
+    assert tuple(p.parts.shape) == (2, rows, cp) and cp % 32 == 0
+    big, small = p.parts[0].double(), p.parts[1].double()
+    for part in p.parts:
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    err = (big[:n, :c] + small[:n, :c] - x.double()).abs()
+    assert (err <= 2.0 ** -22 * x.double().abs()).all()
+    assert not p.parts[:, n:].any() and not p.parts[:, :, c:].any()
+
+
+def test_k4_route_is_chosen_by_c():
+    assert TS.TC_MIN_C == 32
+    assert [TS.route(c) for c in (3, 31, 32, 35, 2179)] == [
+        "cuda_cores", "cuda_cores", "tensor_cores", "tensor_cores",
+        "tensor_cores"]
+    assert [TS.prep_channels(c) for c in (3, 31, 32, 35, 2179)] == [
+        4, 32, 32, 64, 2208]
+    assert TS.tile_shape(3) == (1024, 256)
+    assert TS.tile_shape(2179) == (128, 192)
+
+
+@pytest.mark.parametrize("n,m,c,sms", [
+    (32769, 32769, 2179, 132), (32769, 32769, 3, 132),
+    (4099, 3001, 2179, 132), (4096, 4096, 2179, 132), (129, 300, 40, 132),
+    (1025, 300, 3, 8), (32769, 32769, 2179, 114)])
+def test_k4_split_covers_every_pair_once(n, m, c, sms):
+    """Items (strip, chunk) cover each (row, column) pair exactly once:
+    the strips partition the rows, the chunks of a strip its column
+    tiles."""
+    bm, bn = TS.tile_shape(c)
+    split = TS.lse_split(n, m, c, sms)
+    tiles = -(-m // bn)
+    assert 1 <= split <= min(tiles, TS.MAX_SPLIT)
+    cols = np.zeros(m, np.int64)
+    for q in range(split):
+        chunk = TS.chunk_tiles(q, tiles, split)
+        assert len(chunk) >= 1
+        for t in chunk:
+            cols[t * bn:(t + 1) * bn] += 1
+    rows = np.zeros(n, np.int64)
+    for strip in range(-(-n // bm)):
+        rows[strip * bm:(strip + 1) * bm] += 1
+    assert (cols == 1).all() and (rows == 1).all()
+
+
+def test_k4_split_rule_at_the_path_shapes():
+    """On an H100 (132 SMs): at 32769 samples S = 1, 3 and 9 tie (342 tile
+    times on the busiest SM) and 1 leaves the fewest slots idle (7 of 132
+    in its second round); 4 at 4099 x 3001 (4, 8 and 16 fill the card in
+    4 tile times; the smallest); 16 on the YUV term's CUDA-core route (15
+    ties in tile times but leaves 33 slots idle; chunks of unequal length
+    cost nothing more there). On 114 SMs (an H100 PCIe) 3 and 9 tie at
+    32769 samples and 3 leaves fewer idle; on 144, 5 would take the
+    fewest tile times (315) but its chunks differ in length, so 9 (323).
+    PERF.md holds the measured splits."""
+    assert TS.lse_split(32769, 32769, 2179, 132) == 1
+    assert TS.lse_split(32769, 32769, 3, 132) == 16
+    assert TS.lse_split(4099, 3001, 2179, 132) == 4
+    assert TS.lse_split(32769, 32769, 2179, 114) == 3
+    assert TS.lse_split(32769, 32769, 2179, 144) == 9
+
+
+@pytest.mark.parametrize("m", [32769, 32256])
+@pytest.mark.parametrize("sms", [114, 132, 144, 160])
+def test_k4_split_prefers_equal_chunks_on_tensor_cores(m, sms):
+    """At 32769 rows the tensor-core route takes a split whose chunks all
+    hold the same number of column tiles (171 or 168 tiles); an unequal
+    split would have to cost 30% fewer tile times to be taken."""
+    tiles = -(-m // TS.TC_BN)
+    split = TS.lse_split(32769, m, 2179, sms)
+    assert tiles % split == 0
+    assert len({len(TS.chunk_tiles(q, tiles, split))
+                for q in range(split)}) == 1
+
+
+def test_k4_streamed_solve_prepares_once_on_cpu():
+    """On the CPU the solve prepares nothing and launches nothing."""
+    before = (TS.prepare.launches, TS.lse_pass.launches)
+    x, y = _t(_rand(61, (40, 35))), _t(_rand(62, (30, 35)))
+    assert TS.prepare(x, y) is None
+    TS.sinkhorn_streamed(x, y, "cosine", 10.0, 3)
+    assert (TS.prepare.launches, TS.lse_pass.launches) == before
