@@ -17,13 +17,18 @@ and the streamed Sinkhorn loss and gradient), runs a short slice of the
 64 px scale with the kernels and with the plain versions, and then drives
 the default stylization (VGG16, 9 taps, 1024 samples, 4 scales to 512 px)
 through
-``strotss_torch.stylize``, counting each kernel's launches, and profiles
-10 steps a scale. Last it drives the ``--sinkhorn`` path twice:
-below the memory gate (BASELINE config 5 at reduced depth, the plain
-materialized Sinkhorn) and above it (32769 samples, kernel K4). Each phase
-prints one JSON line; any failure exits non-zero. The last two lines are
-the kernels' measurements and ``{"ok": true, "device": {...}}``. It
-imports nothing of JAX.
+``strotss_torch.stylize``, counting each kernel's launches. It drives the
+same run with two region masks (BASELINE config 3, masks loaded from PNGs
+by ``strotss_torch.ops.masks.load_mask``), after holding one masked step's
+kernel losses to the plain ones, and profiles 10 steps a scale. Then it
+drives the ``--sinkhorn`` path twice: below the memory gate (BASELINE
+config 5 at reduced depth, the plain materialized Sinkhorn) and above it
+(32769 samples, kernel K4). Last, seed 0 of both whole-run parity
+protocols of ``tools/parity_torch.py`` in bfloat16 is held to the JAX
+package's band (``tools/parity_jax_band.json``). Each phase prints one
+JSON line; any failure exits non-zero. The last two lines are the
+kernels' measurements and ``{"ok": true, "device": {...}}``. It imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -959,8 +964,8 @@ def phase_slice(vgg_params):
         content_feats = programs.extract_hypercolumn(vgg, scl_c)
         targets = sampling.sample_style(
             sampling.full_grid_coords(gen, shw, n, "cuda"),
-            programs.extract_hypercolumn(vgg, scl_s))
-        moments = moment_stats(targets)
+            programs.extract_hypercolumn(vgg, scl_s))[None]
+        moments = [moment_stats(targets[0])]
     pyramid = [p.contiguous() for p in pyramid]
     opt = programs.RMSprop(pyramid, cfg.lr)
     alpha = cfg.initial_alpha()
@@ -969,7 +974,7 @@ def phase_slice(vgg_params):
                            "cudnn_route_loss_rel_err")}
     forced = []
     for t in range(cfg.max_iter):
-        step_coords = sampling.strided_grid_coords(gen, chw, n, "cuda")
+        step_coords = sampling.strided_grid_coords(gen, chw, n, "cuda")[None]
         leaves = [p.requires_grad_(True) for p in pyramid]
         pred = programs.extract_hypercolumn(vgg,
                                             fold_laplacian_pyramid(leaves))
@@ -1026,12 +1031,12 @@ def _counted():
             "sinkhorn_prep": sinkhorn.prepare}
 
 
-def _run_counted(content, style, cfg):
-    """One stylization through strotss_torch.stylize, weights resolved as
-    a user's run resolves them (on a machine without pretrained weights:
-    the seeded random init, with a warning), with every launch count set
-    to 0 just before and read just after. Returns (image, info, launches,
-    summary)."""
+def _run_counted(content, style, cfg, **kw):
+    """One stylization through strotss_torch.stylize (``kw``: its region
+    masks), weights resolved as a user's run resolves them (on a machine
+    without pretrained weights: the seeded random init, with a warning),
+    with every launch count set to 0 just before and read just after.
+    Returns (image, info, launches, summary)."""
     import torch
 
     import strotss_torch
@@ -1041,7 +1046,7 @@ def _run_counted(content, style, cfg):
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    img, info = strotss_torch.stylize(content, style, cfg)
+    img, info = strotss_torch.stylize(content, style, cfg, **kw)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counted.items()}
@@ -1176,6 +1181,176 @@ def phase_sinkhorn(cosine_pass_ms):
     return launches
 
 
+def _mask_pngs(tmp, content_hw, style_hw):
+    """Two-colour mask images written as PNGs: the content's top half red
+    and bottom half green, the style's left half red and right half
+    green. Returns their paths."""
+    from PIL import Image
+
+    paths = []
+    for name, (h, w), axis in (("content", content_hw, 0),
+                               ("style", style_hw, 1)):
+        img = np.zeros((h, w, 3), np.uint8)
+        img[..., 0] = 255
+        second = (slice(h // 2, None), slice(None)) if axis == 0 else (
+            slice(None), slice(w // 2, None))
+        img[second] = (0, 255, 0)
+        paths.append(f"{tmp}/{name}_mask.png")
+        Image.fromarray(img).save(paths[-1])
+    return paths
+
+
+def _masked_step(vgg_params, content, style, cmasks_raw, smasks_raw):
+    """One masked step at the 64 px scale of the full-width configuration,
+    its losses with the kernels and with the plain versions from the same
+    state: the same VGG features, region masks, targets and coordinates.
+    The REMD and self-similarity routes compute the same function (float32
+    sums in another order), so (loss, loss_c, loss_s) agree to rtol 1e-3,
+    as in the slice phase. Returns the launches the kernel route made and
+    the relative errors."""
+    import torch
+
+    import strotss_torch
+    from strotss_torch import programs, solve
+    from strotss_torch.models.vgg import VGG
+    from strotss_torch.ops import sampling
+    from strotss_torch.ops.image import fold_laplacian_pyramid
+    from strotss_torch.ops.losses import moment_stats
+
+    cfg = strotss_torch.StrotssConfig(levels=1, max_iter=1)
+    spec_k = programs.spec_from_config(cfg, "cuda", masked=True)
+    spec_p = spec_k._replace(remd_impl="plain", selfsim_impl="plain")
+    check((spec_k.remd_impl, spec_k.selfsim_impl) == ("auto", "auto"),
+          f"masked: step routes {spec_k}")
+    programs.set_precision(spec_k)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    c = torch.tensor(content, device="cuda")
+    s = torch.tensor(style, device="cuda")
+    mode, chw, shw = solve.scale_mode_shapes(cfg, c.shape, s.shape, 0, 64)
+    params = {k: {n: t.cuda() for n, t in p.items()}
+              for k, p in vgg_params.items()}
+    vgg = VGG(params, taps=spec_k.taps, compute_dtype=spec_k.compute_dtype,
+              block1_impl=spec_k.block1_impl)
+    n = cfg.sample_size
+    with torch.no_grad():
+        scl_c, scl_s, pyramid = programs.scale_seed(
+            mode, chw, shw, cfg.pyramid_levels, c, s, None)
+        content_feats = programs.extract_hypercolumn(vgg, scl_c)
+        style_feats = programs.extract_hypercolumn(vgg, scl_s)
+        cmasks = [sampling.prepare_mask(m.cuda(), chw) for m in cmasks_raw]
+        targets = torch.stack([sampling.sample_style(
+            sampling.full_grid_coords(gen, shw, n, "cuda",
+                                      mask=sampling.prepare_mask(m.cuda(),
+                                                                 shw)),
+            style_feats) for m in smasks_raw])
+        moments = [moment_stats(t) for t in targets]
+    coords = torch.stack([sampling.strided_grid_coords(gen, chw, n, "cuda",
+                                                       mask=m)
+                          for m in cmasks])
+    leaves = [p.contiguous().requires_grad_(True) for p in pyramid]
+    pred = programs.extract_hypercolumn(vgg, fold_laplacian_pyramid(leaves))
+    counted = _counted()
+    before = {k: fn.launches for k, fn in counted.items()}
+    got = programs.step_losses(spec_k, content_feats, pred, targets, moments,
+                               cfg.initial_alpha(), coords)
+    grads = torch.autograd.grad(got[0], leaves)
+    launched = {k: fn.launches - before[k] for k, fn in counted.items()}
+    with torch.no_grad():
+        want = programs.step_losses(spec_p, content_feats, pred, targets,
+                                    moments, cfg.initial_alpha(), coords)
+    errs = [abs(float(a.detach()) - float(b)) / abs(float(b))
+            for a, b in zip(got, want)]
+    check(all(bool(torch.isfinite(g).all()) for g in grads),
+          "masked: non-finite gradient in the 64 px step")
+    return launched, errs
+
+
+def phase_masked(vgg_params):
+    """BASELINE config 3, mask-guided transfer, at full width:
+    ``StrotssConfig()`` (VGG16, 9 taps, 2179 channels, 1024 samples, 4
+    scales x 200 steps, bf16 policy) with two regions, through
+    ``strotss_torch.stylize``. The masks are PNGs loaded by
+    ``strotss_torch.ops.masks.load_mask`` at the images' sizes. A step
+    runs K1 twice, K2a and K2b once for each region, block1 once."""
+    import tempfile
+
+    import torch
+
+    import strotss_torch
+    from strotss_torch.ops.masks import load_mask
+
+    content = _smooth_image(480, 640, 21)
+    style = _smooth_image(720, 560, 22)
+    with tempfile.TemporaryDirectory() as tmp:
+        cm, sm = load_mask(*_mask_pngs(tmp, (480, 640), (720, 560)))
+    check(tuple(cm.shape) == (2, 480, 640, 1)
+          and tuple(sm.shape) == (2, 720, 560, 1),
+          f"masked: masks {tuple(cm.shape)} {tuple(sm.shape)}")
+    step_launches, errs = _masked_step(vgg_params, content, style, cm, sm)
+    emit({"phase": "masked", "check": "one 64 px step, kernel against plain "
+          "losses from the same state", "launches": step_launches,
+          "loss_rel_err": errs[0], "loss_c_rel_err": errs[1],
+          "loss_s_rel_err": errs[2]})
+    check(max(errs) <= 1e-3, f"masked: kernel losses against plain {errs}")
+    check(step_launches["remd_mins"] == 4
+          and step_launches["selfsim_fwd"] == 2
+          and step_launches["selfsim_bwd"] == 2,
+          f"masked: the 64 px step launched {step_launches}")
+
+    cfg = strotss_torch.StrotssConfig()
+    img, info, launches, summary = _run_counted(
+        content, style, cfg, content_masks=cm, style_masks=sm)
+    steps = cfg.levels * cfg.max_iter
+    k = int(cm.shape[0])
+    emit({"phase": "masked", "config": "BASELINE config 3 at full width: "
+          "StrotssConfig() defaults with 2 regions (content top/bottom, "
+          "style left/right)", "regions": info["n_regions"],
+          "seconds_per_step": summary["seconds"] / steps, "steps": steps,
+          **summary})
+    print(f"masked: {summary['seconds']:.2f} s wall, "
+          f"{summary['seconds'] / steps:.4f} s per step", flush=True)
+    _check_curves("masked", info, falls=True)
+    check(info["n_regions"] == k == 2, f"masked: {info['n_regions']} regions")
+    check(img.dtype == torch.uint8 and tuple(img.shape) == (384, 512, 3),
+          f"masked: output {img.dtype} {tuple(img.shape)}, want uint8 "
+          "(384, 512, 3)")
+    want = {"remd_mins": 2 * k * steps, "selfsim_fwd": k * steps,
+            "selfsim_bwd": k * steps, "block1_fwd": steps + 2 * cfg.levels,
+            "block1_bwd": steps, "sinkhorn_lse": 0, "sinkhorn_prep": 0}
+    check(launches == want, f"masked: launches {launches}, want {want}")
+    return launches
+
+
+def phase_parity():
+    """Seed 0 of both whole-run parity protocols of
+    ``tools/parity_torch.py`` (default: 600 steps; masked: 240) in
+    bfloat16 with the kernels. Each metric's tail-mean must lie within
+    4 s_jax sqrt(1 + 1/n) of the mean of the JAX package's n seeds
+    (``tools/parity_jax_band.json``, ``parity_torch.single_draw``). One
+    draw resolves no more than the JAX package's own spread of a draw:
+    the phase catches gross faults, and the tool's many seeds a side
+    measure parity."""
+    from tools import parity_torch as P
+
+    with open(P.BAND) as f:
+        band = json.load(f)
+    for protocol in P.PROTOCOLS:
+        got = P.torch_cell(protocol, "bfloat16", [0], "cuda")
+        cell = band["cells"][P.cell_name(protocol, "bfloat16")]
+        res = {m: P.single_draw(cell, m, got[m][0]) for m in P.METRICS}
+        emit({"phase": "parity", "protocol": protocol, "dtype": "bfloat16",
+              "seed": 0, "seconds": got["seconds"],
+              "launches": got["launches"], "rule": P.SINGLE_RULE, **res})
+        engaged = ("remd_mins", "selfsim_fwd", "selfsim_bwd", "block1_fwd",
+                   "block1_bwd")
+        check(all(got["launches"][k] > 0 for k in engaged),
+              f"parity {protocol}: kernels not engaged {got['launches']}")
+        for m, r in res.items():
+            check(r["pass"], f"parity {protocol} {m}: {r['value']} against "
+                  f"the JAX mean {r['mean_jax']} (limit {r['limit']})")
+
+
 def _device_rows(prof):
     """(kernel name, device ms, count) rows of a profile, largest first."""
     import torch
@@ -1284,7 +1459,10 @@ def _with_yuv(main, yuv):
     return entry
 
 
-def kernels_line(meas, launches):
+def kernels_line(meas, launches, masked):
+    """``launches``: the main path's counts (K4's from the sinkhorn
+    phase's run (b)); ``masked``: the masked phase's, as
+    ``launches_masked``."""
     ss_big = meas["selfsim_32769"]
     rows = [("remd_mins", _with_yuv(*meas["remd_mins"]))]
     for name in ("fwd", "bwd"):
@@ -1305,6 +1483,7 @@ def kernels_line(meas, launches):
         out.append({
             "name": name, "route": "cuda", "source": _SOURCES[name],
             "replaces": _REPLACES[name], "launches": launches[name],
+            "launches_masked": masked[name],
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
@@ -1343,15 +1522,17 @@ def main() -> int:
         vgg_params = random_params("16", seed=0)
         phase_slice(vgg_params)
         launches = phase_main()
+        masked = phase_masked(vgg_params)
         phase_profile(vgg_params)
         cosine_pass_ms = meas["sinkhorn_lse"][0]["ms"]
         sk = phase_sinkhorn(cosine_pass_ms)
         launches.update(sinkhorn_lse=sk["sinkhorn_lse"],
                         sinkhorn_prep=sk["sinkhorn_prep"])
+        phase_parity()
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    print(json.dumps(kernels_line(meas, launches)), flush=True)
+    print(json.dumps(kernels_line(meas, launches, masked)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -12,7 +12,7 @@ import torch
 from strotss_torch.config import StrotssConfig
 from strotss_torch.models.weights import load_vgg_params
 from strotss_torch.solve import stylize_single
-from strotss_torch.validation import check_image
+from strotss_torch.validation import check_image, check_masks
 
 
 def resolve_device(device=None) -> torch.device:
@@ -48,16 +48,16 @@ def stylize(
     device=None,
 ) -> Tuple[torch.Tensor, Dict]:
     """Stylize ``content`` with ``style`` (both (1,H,W,3) float in [0,1],
-    numpy arrays or tensors).
+    numpy arrays or tensors), optionally region by region:
+    ``content_masks``/``style_masks`` are (K,H,W,1) float 0/1 stacks that
+    pair content region k with style region k
+    (:func:`strotss_torch.ops.masks.load_mask` makes them from two colour
+    mask images).
 
     Returns the uint8 HWC stylized image (on the run's device) and an info
     dict with per-scale losses and timings. ``device``: ``None`` (the
     first CUDA card), ``'cuda:<id>'`` or ``'cpu'``.
     """
-    if content_masks is not None or style_masks is not None:
-        raise NotImplementedError("region masks are not ported to "
-                                  "strotss_torch yet (ROADMAP.md Queue 1 "
-                                  "item 7)")
     if isinstance(style, (list, tuple)) or style_weights is not None:
         raise NotImplementedError("multi-style blending is not ported to "
                                   "strotss_torch yet (ROADMAP.md Queue 1 "
@@ -68,11 +68,16 @@ def stylize(
                                   "item 9)")
     check_image("content", content)
     check_image("style", style)
+    check_masks(content_masks, style_masks)
     dev = resolve_device(device)
     cfg = cfg or StrotssConfig()
     if vgg_params is None:
         vgg_params = load_vgg_params(cfg.vgg_type, cfg.use_keras_weight)
+    masks = {}
+    if content_masks is not None:
+        masks = {"content_masks": _to_device(content_masks, dev),
+                 "style_masks": _to_device(style_masks, dev)}
     return stylize_single(
         _to_device(content, dev), _to_device(style, dev), cfg, vgg_params,
-        progress_cb=progress_cb, snapshot_cb=snapshot_cb,
+        progress_cb=progress_cb, snapshot_cb=snapshot_cb, **masks,
     )

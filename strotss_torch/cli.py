@@ -3,9 +3,10 @@
 Same flags, defaults and log messages as ``strotss_tpu/cli.py``. The run
 goes to ``cuda:<--gpu_id>`` (alias ``--device_id``); ``--cpu`` asks for the
 CPU instead, and without a card and without ``--cpu`` the run stops with
-an error rather than falling back. Flags of paths not ported yet (masks,
-``--init``, blended styles, ``--checkpoint_dir``, ``--start_level``,
-``--remat``, ``--profile_dir``) raise a clear error. ``--sinkhorn``
+an error rather than falling back. ``--content_mask``/``--style_mask``
+run region-guided transfer. Flags of paths not ported yet (``--init``,
+blended styles, ``--checkpoint_dir``, ``--start_level``, ``--remat``,
+``--profile_dir``) raise a clear error. ``--sinkhorn``
 takes the materialized Sinkhorn path below N * M = 2**30 samples and the
 streamed one (kernel K4) above, as the JAX package does.
 ``--no_pallas`` takes the plain PyTorch versions of the loss kernels and
@@ -28,9 +29,9 @@ logger = make_logger("STROTSS")
 
 #: flag -> ROADMAP.md Queue 1 item that ports it
 _UNPORTED = {
-    "content_mask": 7, "style_mask": 7, "style2": 8, "style_blend": 8,
-    "styles": 8, "style_weights": 8, "init": 9, "checkpoint_dir": 9,
-    "start_level": 9, "remat": 14, "profile_dir": 14,
+    "style2": 8, "style_blend": 8, "styles": 8, "style_weights": 8,
+    "init": 9, "checkpoint_dir": 9, "start_level": 9, "remat": 14,
+    "profile_dir": 14,
 }
 
 
@@ -106,6 +107,7 @@ def main(argv=None) -> int:
     import torch
 
     from strotss_torch.api import resolve_device, stylize
+    from strotss_torch.ops.masks import load_mask
     from strotss_torch.utils.io import load_image, write_image
 
     device = resolve_device("cpu" if args.cpu else f"cuda:{args.device_id}")
@@ -133,6 +135,15 @@ def main(argv=None) -> int:
     )
     content = load_image(args.content_path, max_size=args.max_size)
     style = load_image(args.style_path, max_size=args.max_size)
+
+    content_masks = style_masks = None
+    if args.content_mask and args.style_mask:
+        content_masks, style_masks = load_mask(
+            args.content_mask, args.style_mask, max_size=args.max_size)
+        logger.info(f"Loaded {content_masks.shape[0]} masks.")
+    elif args.content_mask or args.style_mask:
+        raise ValueError(
+            "Either both content and style masks must be provided or neither.")
 
     try:
         from tqdm import tqdm
@@ -164,7 +175,8 @@ def main(argv=None) -> int:
         def snapshot(scl, it, img):
             write_image(img, f"{stem}_scale{scl}_it{it:04d}{ext or '.jpg'}")
 
-    final, _ = stylize(content, style, cfg, progress_cb=progress,
+    final, _ = stylize(content, style, cfg, content_masks=content_masks,
+                       style_masks=style_masks, progress_cb=progress,
                        snapshot_cb=snapshot, device=device)
     if bar is not None:
         bar.close()

@@ -3,8 +3,8 @@
 The port's own copy of ``strotss_tpu/config.py``'s ``StrotssConfig``, with
 the same fields and defaults (a test holds them equal). Importing the JAX
 package's module would import JAX, so the port keeps this copy. Fields of
-paths not ported yet (masks, warm start, checkpoints, sharding)
-exist so that configurations carry over; the port
+paths not ported yet (warm start, checkpoints, sharding, activation
+recompute, profiling) exist so that configurations carry over; the port
 raises where one of them asks for such a path.
 """
 

@@ -1,4 +1,4 @@
-"""Hypercolumn feature sampling (unmasked), the counterpart of
+"""Hypercolumn feature sampling, the counterpart of
 ``strotss_tpu/ops/sampling.py``.
 
 - Style targets: ``sample_size`` pixels drawn uniformly without
@@ -9,6 +9,11 @@
   same coordinates for both, bilinear lookup with the reference's border
   clipping. Coordinates are rescaled per feature map by
   :func:`coordinate_factors`.
+- Region masks (:func:`prepare_mask`) restrict either draw to the pixels
+  of one region. A region with no valid point at a scale or grid offset
+  falls back to the whole grid (the JAX package's escapes), and the draw
+  is always topped up with replacement, because the valid count is known
+  only on the device and is never read back.
 
 Draws come from an explicit ``torch.Generator`` on the run's device, so
 sampling never waits on the host. Selection is Gumbel top-k over the valid
@@ -22,9 +27,11 @@ all lookups are gathers.
 from __future__ import annotations
 
 import math
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
+
+from strotss_torch.ops.image import resize_bilinear
 
 
 def coordinate_factors(shapes: Sequence[Tuple[int, int]]) -> List[float]:
@@ -57,6 +64,27 @@ def strided_grid_params(h: int, w: int) -> Tuple[int, int, int, int]:
     return step_x, step_y, -(-h // step_x), -(-w // step_y)
 
 
+def prepare_mask(mask: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
+    """Resize an (H, W, 1) or (1, H, W, 1) mask to ``hw`` and threshold at
+    0.5: a float (h, w) validity map in {0, 1}. If the resized mask's
+    maximum is below 0.1 every pixel is valid (the reference's all-pass
+    escape)."""
+    if mask.ndim == 4:
+        mask = mask[0]
+    m = resize_bilinear(mask.float(), hw)[..., 0]
+    valid = (m > 0.5).float()
+    return torch.where(m.max() < 0.1, torch.ones_like(valid), valid)
+
+
+def _check_mask_hw(mask: torch.Tensor, hw: Tuple[int, int]) -> None:
+    """A prepared mask must have the base grid's shape: any other would
+    draw coordinates from the wrong index domain."""
+    if tuple(mask.shape) != tuple(hw):
+        raise ValueError(
+            f"sampling mask has shape {tuple(mask.shape)} but the base "
+            f"grid is {tuple(hw)}; resize it first (prepare_mask)")
+
+
 def _select_k(gen: torch.Generator, valid: torch.Tensor, k: int,
               min_valid: int) -> torch.Tensor:
     """``k`` indices drawn without replacement among ``valid`` entries.
@@ -76,23 +104,37 @@ def _select_k(gen: torch.Generator, valid: torch.Tensor, k: int,
     idx = torch.topk(scores, k).indices
     if min_valid >= k:
         return idx
+    # the caller guarantees a valid entry: multinomial fails on a zero row
     probs = valid.float()
     replacement = torch.multinomial(probs, k, replacement=True, generator=gen)
     return torch.where(valid[idx], idx, replacement)
 
 
 def full_grid_coords(gen: torch.Generator, hw: Tuple[int, int],
-                     sample_size: int, device) -> torch.Tensor:
-    """``sample_size`` pixel coords (row, col) of the full grid, float32."""
+                     sample_size: int, device,
+                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``sample_size`` pixel coords (row, col) of the full grid, float32,
+    among the pixels of a prepared ``mask`` when one is given."""
     h, w = hw
-    idx = _select_k(gen, torch.ones(h * w, dtype=torch.bool, device=device),
-                    sample_size, h * w)
+    valid = torch.ones(h * w, dtype=torch.bool, device=device)
+    min_valid = h * w
+    if mask is not None:
+        _check_mask_hw(mask, hw)
+        in_mask = mask.reshape(-1) > 0.5
+        # a region with no pixel over the threshold at this scale (possible
+        # past prepare_mask's escape, e.g. a resized maximum of 0.3) takes
+        # the whole grid
+        valid = torch.where(in_mask.any(), in_mask, valid)
+        min_valid = 0
+    idx = _select_k(gen, valid, sample_size, min_valid)
     return torch.stack([idx // w, idx % w], dim=1).float()
 
 
 def strided_grid_coords(gen: torch.Generator, hw: Tuple[int, int],
-                        sample_size: int, device) -> torch.Tensor:
-    """``sample_size`` coords of a random-offset strided grid, float32."""
+                        sample_size: int, device,
+                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``sample_size`` coords of a random-offset strided grid, float32,
+    among the grid points inside a prepared ``mask`` when one is given."""
     h, w = hw
     step_x, step_y, nx, ny = strided_grid_params(h, w)
     off_x = torch.randint(0, step_x, (1,), generator=gen, device=device)
@@ -101,10 +143,18 @@ def strided_grid_coords(gen: torch.Generator, hw: Tuple[int, int],
     ys = off_y + torch.arange(ny, device=device) * step_y
     gx = xs.repeat_interleave(ny)
     gy = ys.repeat(nx)
+    inb = (gx < h) & (gy < w)
     # whatever the offsets, at least floor(h/step) x floor(w/step) points
     # fall inside the image
-    idx = _select_k(gen, (gx < h) & (gy < w), sample_size,
-                    (h // step_x) * (w // step_y))
+    valid, min_valid = inb, (h // step_x) * (w // step_y)
+    if mask is not None:
+        _check_mask_hw(mask, hw)
+        in_mask = inb & (mask[gx.clamp(0, h - 1), gy.clamp(0, w - 1)] > 0.5)
+        # a thin region can fall between the grid's points for some
+        # offsets: that draw takes the in-bounds grid
+        valid = torch.where(in_mask.any(), in_mask, inb)
+        min_valid = 0
+    idx = _select_k(gen, valid, sample_size, min_valid)
     return torch.stack([gx[idx], gy[idx]], dim=1).float()
 
 

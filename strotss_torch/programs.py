@@ -1,5 +1,5 @@
 """One optimization step and its pieces, the counterpart of
-``strotss_tpu/programs.py`` (lines 48-136, 200-235, 505-539, 605-663).
+``strotss_tpu/programs.py`` (lines 48-136, 200-235, 505-539, 605-675).
 
 A step folds the Laplacian pyramid into the image, runs VGG with the
 STROTSS taps, samples content and prediction rows of the hypercolumn at
@@ -7,9 +7,11 @@ shared strided-grid coordinates, computes the content loss
 (self-similarity) and the style loss (moments against the hoisted target
 statistics, a transport term on cosine distance and one with the 'both'
 distance on YUV: REMD, or Sinkhorn under ``use_sinkhorn``), takes the
-gradient back to the pyramid and applies RMSprop. PyTorch runs eagerly,
-so the JAX package's per-scale compiled programs become a Python loop
-over steps.
+gradient back to the pyramid and applies RMSprop. Under region masks the
+losses are computed per region, each with its own coordinates and style
+targets, and averaged. PyTorch runs eagerly, so the JAX package's
+per-scale compiled programs become a Python loop over steps (and over
+regions).
 """
 
 from __future__ import annotations
@@ -35,9 +37,11 @@ class StepSpec(NamedTuple):
 
     ``remd_impl`` and ``selfsim_impl`` select the loss implementations:
     ``'auto'`` (the CUDA kernels on a CUDA device, the plain versions on
-    the CPU), ``'plain'`` or ``'kernel'``. ``block1_impl`` is VGG block1's
-    route for the run's device, ``'pallas'`` (fused, kernel K3) or
-    ``'xla'`` (``F.conv2d``).
+    the CPU), ``'plain'`` or ``'kernel'``; under ``use_sinkhorn``
+    ``remd_impl`` is the Sinkhorn route (``'auto'``: the memory gate;
+    ``'plain'``: materialized at every size). ``block1_impl`` is VGG
+    block1's route for the run's device, ``'pallas'`` (fused, kernel K3)
+    or ``'xla'`` (``F.conv2d``).
     """
 
     sample_size: int
@@ -75,8 +79,18 @@ def _block1_route(cfg: StrotssConfig, device) -> str:
     return b1
 
 
-def spec_from_config(cfg: StrotssConfig, device="cpu") -> StepSpec:
-    """The step's static configuration for a run on ``device``."""
+def spec_from_config(cfg: StrotssConfig, device="cpu",
+                     masked: bool = False) -> StepSpec:
+    """The step's static configuration for a run on ``device``.
+
+    A masked Sinkhorn run takes the materialized Sinkhorn with its
+    unrolled gradient at every size, as the JAX package's masked path does
+    (``strotss_tpu/programs.py:88``): crossing the memory gate would
+    change the gradient estimator and so the result. A Sinkhorn step runs
+    no REMD, so ``remd_impl`` carries that route; self-similarity, and
+    REMD on a masked run without Sinkhorn, keep their kernels, since any
+    route computes the same function.
+    """
     impl = "auto" if cfg.use_pallas else "plain"
     return StepSpec(
         sample_size=cfg.sample_size,
@@ -87,7 +101,7 @@ def spec_from_config(cfg: StrotssConfig, device="cpu") -> StepSpec:
         use_sinkhorn=cfg.use_sinkhorn,
         sinkhorn_lambda=cfg.sinkhorn_lambda,
         sinkhorn_iters=cfg.sinkhorn_iters,
-        remd_impl=impl,
+        remd_impl="plain" if masked and cfg.use_sinkhorn else impl,
         selfsim_impl=impl,
         block1_impl=_block1_route(cfg, device),
     )
@@ -149,15 +163,26 @@ def scale_seed(mode: str, chw, shw, levels: int, content, style, prev):
 
 def step_losses(spec: StepSpec, content_feats, pred, style_targets,
                 style_moments, alpha: float, coords: torch.Tensor):
-    """(loss, loss_c, loss_s) of one step at the given sample coords."""
-    c_feat, p_feat = sample_paired(coords, content_feats, pred)
-    lc = content_loss(c_feat, p_feat, impl=spec.selfsim_impl)
-    ls = style_loss(style_targets, p_feat, alpha,
-                    use_sinkhorn=spec.use_sinkhorn,
-                    sinkhorn_lambda=spec.sinkhorn_lambda,
-                    sinkhorn_iters=spec.sinkhorn_iters,
-                    remd_impl=spec.remd_impl, target_moments=style_moments)
+    """(loss, loss_c, loss_s) of one step at the given sample coords.
+
+    One entry a region: (K, n, 2) ``coords``, (K, n, C) ``style_targets``
+    and K ``style_moments`` (K = 1 without masks). ``loss_c`` and
+    ``loss_s`` are the regions' means, and the loss
+    sum_k (alpha lc_k + ls_k) / (K denom)
+    (``strotss_tpu/programs.py:663-675``).
+    """
     denom = 2.0 + alpha + 1.0 / max(alpha, 1.0)
+    k = coords.shape[0]
+    lc = ls = 0.0
+    for xy, target, tmom in zip(coords, style_targets, style_moments):
+        c_feat, p_feat = sample_paired(xy, content_feats, pred)
+        lc = lc + content_loss(c_feat, p_feat, impl=spec.selfsim_impl) / k
+        ls = ls + style_loss(target, p_feat, alpha,
+                             use_sinkhorn=spec.use_sinkhorn,
+                             sinkhorn_lambda=spec.sinkhorn_lambda,
+                             sinkhorn_iters=spec.sinkhorn_iters,
+                             remd_impl=spec.remd_impl,
+                             target_moments=tmom) / k
     return (alpha * lc + ls) / denom, lc, ls
 
 
@@ -169,7 +194,9 @@ def optimization_steps(spec: StepSpec, n_steps: int, vgg: VGG, content_feats,
     ``pyramid`` (a list of leaf tensors) is updated in place; the per-step
     (loss, loss_c, loss_s) rows come back as one (n_steps, 3) tensor on the
     run's device, so the loop never waits for the card. ``style_moments``
-    are the targets' :func:`moment_stats`, hoisted out of the loop.
+    are the targets' :func:`moment_stats`, hoisted out of the loop; the
+    targets, moments and ``coords_fn``'s coordinates have one entry per
+    region (:func:`step_losses`).
     """
     rows = []
     for t in range(n_steps):

@@ -5,8 +5,10 @@ and of the per-scale shapes of ``strotss_tpu/aot.py:90-114``.
 A loop over scales (long edge 64 -> 128 -> 256 -> 512 by default); per
 scale, ``max_iter`` RMSprop steps on the Laplacian-pyramid coefficients of
 the stylized image. Alpha starts at ``cfg.initial_alpha()`` and halves per
-scale; the last scale runs at half the learning rate. This slice covers
-one style and no masks.
+scale; the last scale runs at half the learning rate. One style, with
+optional region masks: each region pairs a content region with a style
+region, has its own style targets and coordinates each step, and the loss
+averages the regions.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from strotss_torch.ops.image import (
 from strotss_torch.ops.losses import moment_stats
 from strotss_torch.ops.sampling import (
     full_grid_coords,
+    prepare_mask,
     sample_style,
     strided_grid_coords,
 )
@@ -42,8 +45,10 @@ from strotss_torch.programs import (
 
 #: ``coords_source(scale_index, kind, step, hw, sample_size)`` returns the
 #: (sample_size, 2) coordinates for ``kind`` 'style' (once per scale,
-#: step -1) or 'paired' (each step) at base resolution ``hw``.
-CoordsSource = Callable[[int, str, int, Tuple[int, int], int], torch.Tensor]
+#: step -1) or 'paired' (each step) at base resolution ``hw``. Under
+#: region masks it takes a sixth argument, the region index, and is
+#: called once per region.
+CoordsSource = Callable[..., torch.Tensor]
 
 
 def scale_mode_shapes(cfg: StrotssConfig, content_shape, style_shape,
@@ -67,6 +72,21 @@ def _unported(cfg: StrotssConfig) -> None:
                 f"(ROADMAP.md Queue 1 item {item})")
 
 
+def _coords(coords_source, gen, i, kind, step, hw, n, device,
+            masks) -> torch.Tensor:
+    """(K, n, 2) coordinates, one draw a region of ``masks`` (``[None]``
+    without masks): from the run's generator (the full grid for 'style',
+    the strided grid for 'paired', under the region's mask) or from
+    ``coords_source``, which is told the region under masks."""
+    if coords_source is not None:
+        return torch.stack([
+            coords_source(i, kind, step, hw, n,
+                          *(() if m is None else (r,)))
+            for r, m in enumerate(masks)])
+    draw = full_grid_coords if kind == "style" else strided_grid_coords
+    return torch.stack([draw(gen, hw, n, device, mask=m) for m in masks])
+
+
 def stylize_single(
     content: torch.Tensor,
     style: torch.Tensor,
@@ -76,19 +96,26 @@ def stylize_single(
                                    None]] = None,
     snapshot_cb: Optional[Callable[[int, int, torch.Tensor], None]] = None,
     coords_source: Optional[CoordsSource] = None,
+    content_masks: Optional[torch.Tensor] = None,
+    style_masks: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict]:
     """Full coarse-to-fine stylization of one (content, style) pair.
 
     ``content``/``style``: (1,H,W,3) float32 tensors in [0,1] on the device
-    the run uses. Returns (uint8 HWC image on that device, info dict with
-    per-scale losses, timings and loss curves). ``progress_cb`` is called
+    the run uses; ``content_masks``/``style_masks``: optional (K,H,W,1)
+    float 0/1 region stacks on that device, at any resolution (each scale
+    resizes them, :func:`prepare_mask`). Returns (uint8 HWC image on that
+    device, info dict with per-scale losses, timings, loss curves and
+    ``n_regions``). ``progress_cb`` is called
     for every step, replayed at each ``log_every`` boundary, when the
     losses are read back from the device. ``coords_source`` replaces the
     sampling generators (tests replay the JAX package's coordinates).
     """
     _unported(cfg)
     device = content.device
-    spec = spec_from_config(cfg, device)  # ValueError on a bad block1_impl
+    masked = content_masks is not None
+    # ValueError on a bad block1_impl
+    spec = spec_from_config(cfg, device, masked=masked)
     set_precision(spec)
     content = cap_max(content, cfg.max_size)
     style = cap_max(style, cfg.max_size)
@@ -105,7 +132,8 @@ def stylize_single(
     alpha = cfg.initial_alpha()
     stylized = None
     final_u8 = None
-    info: Dict = {"scales": []}
+    info: Dict = {"scales": [],
+                  "n_regions": int(content_masks.shape[0]) if masked else 0}
     t_total = time.perf_counter()
     for i, scl in enumerate(cfg.scale_sizes()):
         t_scale = time.perf_counter()
@@ -118,19 +146,21 @@ def stylize_single(
                 mode, chw, shw, cfg.pyramid_levels, content, style, prev)
             content_feats = extract_hypercolumn(vgg, scl_c)
             style_feats = extract_hypercolumn(vgg, scl_s)
-            if coords_source is None:
-                s_coords = full_grid_coords(gen, shw, n, device)
-            else:
-                s_coords = coords_source(i, "style", -1, shw, n)
-            style_targets = sample_style(s_coords, style_feats)
-            style_moments = moment_stats(style_targets)
+            cmasks = ([prepare_mask(m, chw) for m in content_masks]
+                      if masked else [None])
+            smasks = ([prepare_mask(m, shw) for m in style_masks]
+                      if masked else [None])
+            style_targets = torch.stack([
+                sample_style(xy, style_feats) for xy in _coords(
+                    coords_source, gen, i, "style", -1, shw, n, device,
+                    smasks)])
+            style_moments = [moment_stats(t) for t in style_targets]
         pyramid = [p.detach().contiguous() for p in pyramid]
         opt = RMSprop(pyramid, lr)
 
-        def coords_fn(t, i=i, chw=chw):
-            if coords_source is None:
-                return strided_grid_coords(gen, chw, n, device)
-            return coords_source(i, "paired", t, chw, n)
+        def coords_fn(t, i=i, chw=chw, cmasks=cmasks):
+            return _coords(coords_source, gen, i, "paired", t, chw, n,
+                           device, cmasks)
 
         curve: List[torch.Tensor] = []
         done = 0

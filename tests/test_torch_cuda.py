@@ -471,3 +471,58 @@ def test_sinkhorn_streamed_on_card(cuda_device, dist):
     assert sinkhorn.prepare.launches == before[1] + 1
     want = losses.sinkhorn(x, y, dist, 10.0, 30, impl="plain")
     torch.testing.assert_close(got, want, rtol=1e-4, atol=0)
+
+
+@pytest.mark.cuda
+def test_masked_step_on_card(cuda_device):
+    """One masked step at full width (VGG16, the 9 taps, 1024 samples, the
+    bf16 policy) with 2 regions at 48 x 64: the kernels' losses against
+    the plain versions' on the same features, targets and coordinates to
+    rtol 1e-3 (float32 sums in another order, as chip_smoke's slice
+    phase), with K1 launched twice and K2a, K2b once a region."""
+    from strotss_torch import StrotssConfig, programs
+    from strotss_torch.models.vgg import VGG
+    from strotss_torch.ops import sampling
+    from strotss_torch.ops.image import (fold_laplacian_pyramid,
+                                         make_laplacian_pyramid)
+
+    cfg = StrotssConfig(levels=1, max_iter=1)
+    spec = programs.spec_from_config(cfg, cuda_device, masked=True)
+    plain = spec._replace(remd_impl="plain", selfsim_impl="plain")
+    programs.set_precision(spec)
+    params = {k: {n: t.to(cuda_device) for n, t in p.items()}
+              for k, p in random_params("16", 0).items()}
+    vgg = VGG(params, taps=spec.taps, compute_dtype=spec.compute_dtype,
+              block1_impl=spec.block1_impl)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(0)
+    content = torch.rand(1, 48, 64, 3, generator=gen, device=cuda_device)
+    style = torch.rand(1, 64, 56, 3, generator=gen, device=cuda_device)
+    cm = torch.zeros(2, 48, 64, device=cuda_device)
+    cm[0, :24], cm[1, 24:] = 1.0, 1.0
+    sm = torch.zeros(2, 64, 56, device=cuda_device)
+    sm[0, :, :28], sm[1, :, 28:] = 1.0, 1.0
+    with torch.no_grad():
+        cf = programs.extract_hypercolumn(vgg, content)
+        sf = programs.extract_hypercolumn(vgg, style)
+        targets = torch.stack([sampling.sample_style(
+            sampling.full_grid_coords(gen, (64, 56), 1024, cuda_device,
+                                      mask=m), sf) for m in sm])
+        moments = [losses.moment_stats(t) for t in targets]
+    coords = torch.stack([sampling.strided_grid_coords(
+        gen, (48, 64), 1024, cuda_device, mask=m) for m in cm])
+    leaves = [p.requires_grad_(True)
+              for p in make_laplacian_pyramid(content * 0.5 + 0.25, 5)]
+    pred = programs.extract_hypercolumn(vgg, fold_laplacian_pyramid(leaves))
+    counted = (remd.mins, selfsim.selfsim_fwd, selfsim.selfsim_bwd)
+    before = [fn.launches for fn in counted]
+    got = programs.step_losses(spec, cf, pred, targets, moments, 16.0,
+                               coords)
+    grads = torch.autograd.grad(got[0], leaves)
+    assert [fn.launches - b for fn, b in zip(counted, before)] == [4, 2, 2]
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    with torch.no_grad():
+        want = programs.step_losses(plain, cf, pred, targets, moments, 16.0,
+                                    coords)
+    np.testing.assert_allclose([float(v.detach()) for v in got],
+                               [float(v) for v in want], rtol=1e-3)

@@ -46,7 +46,7 @@ def test_cli_parses_the_jax_flags():
 
 
 @pytest.mark.parametrize("flags", [["--init", "x.png"],
-                                   ["--content_mask", "m.png"],
+                                   ["--remat"],
                                    ["--checkpoint_dir", "d"],
                                    ["--styles", "a.png"]])
 def test_cli_unported_flags_raise(flags):
@@ -68,8 +68,8 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
 
 def test_api_rejects_unported_paths():
     img = np.zeros((1, 8, 8, 3), np.float32)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        strotss_torch.stylize(img, img, content_masks=img, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        strotss_torch.stylize(img, img, init_image=img, device="cpu")
     with pytest.raises(NotImplementedError, match="item 8"):
         strotss_torch.stylize(img, [img, img], device="cpu")
     with pytest.raises(ValueError, match=r"\(1, H, W, 3\)"):
