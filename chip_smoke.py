@@ -20,7 +20,12 @@ through
 ``strotss_torch.stylize``, counting each kernel's launches. It drives the
 same run with two region masks (BASELINE config 3, masks loaded from PNGs
 by ``strotss_torch.ops.masks.load_mask``), after holding one masked step's
-kernel losses to the plain ones, and profiles 10 steps a scale. Then it
+kernel losses to the plain ones. The features phase blends a second
+style with checkpoints, resumes from a checkpoint copied aside, refines
+the default run's result at ``start_level=3`` without and with
+``remat``, traces the CLI with ``--profile_dir`` and tests the law of
+the CUDA generator's coordinate draws against the CPU's. It profiles 10
+steps a scale. Then it
 drives the ``--sinkhorn`` path twice: below the memory gate (BASELINE
 config 5 at reduced depth, the plain materialized Sinkhorn) and above it
 (32769 samples, kernel K4). Last, seed 0 of both whole-run parity
@@ -1032,8 +1037,9 @@ def _counted():
 
 
 def _run_counted(content, style, cfg, **kw):
-    """One stylization through strotss_torch.stylize (``kw``: its region
-    masks), weights resolved as a user's run resolves them (on a machine
+    """One stylization through strotss_torch.stylize (``kw``: its keyword
+    arguments: region masks, style weights, a warm start, a progress
+    callback), weights resolved as a user's run resolves them (on a machine
     without pretrained weights: the seeded random init, with a warning),
     with every launch count set to 0 just before and read just after.
     Returns (image, info, launches, summary)."""
@@ -1050,7 +1056,9 @@ def _run_counted(content, style, cfg, **kw):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counted.items()}
-    summary = {"content": list(content.shape), "style": list(style.shape),
+    summary = {"content": list(content.shape),
+               "style": ([list(x.shape) for x in style]
+                         if isinstance(style, list) else list(style.shape)),
                "output": list(img.shape), "seconds": seconds,
                "stylize_seconds": info["seconds"],
                "scales": [{"scale": s["scale"], "seconds": s["seconds"],
@@ -1095,7 +1103,7 @@ def phase_main():
             "selfsim_bwd": steps, "block1_fwd": steps + 2 * cfg.levels,
             "block1_bwd": steps, "sinkhorn_lse": 0, "sinkhorn_prep": 0}
     check(launches == want, f"main: launches {launches}, want {want}")
-    return launches
+    return launches, info
 
 
 def phase_sinkhorn(cosine_pass_ms):
@@ -1438,6 +1446,283 @@ def phase_profile(vgg_params):
                                  if k != "rows"}})
 
 
+def _chi2_two_sample(a, b, draws=None):
+    """(statistic, p) of the two-sample test that counts ``a`` and ``b``
+    come from one law. ``draws=None``: multinomial counts, the Pearson
+    statistic sum (a - b)^2 / (a + b). Otherwise per-point counts of
+    ``draws`` draws that each pick a point at most once: a point's count
+    is binomial over the draws, with probability q estimated from both,
+    and each term is divided by (1 - q) too. Chi-square with one degree
+    of freedom fewer than the points either side reached."""
+    from scipy.stats import chi2
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    n = a + b
+    keep = n > 0
+    var = n[keep]
+    if draws is not None:
+        keep &= n < 2 * draws
+        var = n[keep] * (1 - n[keep] / (2 * draws))
+    stat = float((((a - b)[keep] ** 2) / var).sum())
+    return stat, float(chi2.sf(stat, int(keep.sum()) - 1))
+
+
+def _draw_counts(device, kind, hw, mask, draws, n):
+    """``draws`` draws of ``n`` coordinates from one generator on
+    ``device``: the counts of each point of the sampler's grid (each
+    pixel for the full grid; each strided-grid point, its offsets taken
+    out) and of each draw's grid offsets."""
+    import torch
+
+    from strotss_torch.ops import sampling
+    from strotss_torch.solve import scale_generators
+
+    gen = scale_generators(0, 0, device)[0 if kind == "full" else 1]
+    draw = (sampling.full_grid_coords if kind == "full"
+            else sampling.strided_grid_coords)
+    sx, sy = ((1, 1) if kind == "full"
+              else sampling.strided_grid_params(*hw)[:2])
+    m = None if mask is None else mask.to(device)
+    gh, gw = -(-hw[0] // sx), -(-hw[1] // sy)
+    points = torch.zeros(gh * gw, dtype=torch.int64, device=device)
+    offsets = torch.zeros(sx * sy, dtype=torch.int64, device=device)
+    for _ in range(draws):
+        xy = draw(gen, hw, n, device, mask=m).long()
+        points += torch.bincount((xy[:, 0] // sx) * gw + xy[:, 1] // sy,
+                                 minlength=gh * gw)
+        offsets[(xy[0, 0] % sx) * sy + xy[0, 1] % sy] += 1
+    return points.cpu().numpy(), offsets.cpu().numpy()
+
+
+def check_draw_law():
+    """Do the CUDA generator's draws follow the CPU's law? 2**20
+    coordinates (1024 draws of 1024) of each sampler on each device: on a
+    48x64 grid (strided steps 1), unmasked and under each of two regions
+    (top and bottom halves), and the strided grid at the 512 px content
+    shape (384x512: steps 3 and 4, a random offset a draw). Each pair of
+    grid-point counts is held by :func:`_chi2_two_sample` to p > 1e-3,
+    and so are the offsets' counts where a grid has more than one."""
+    import torch
+
+    from strotss_torch.ops.sampling import prepare_mask
+
+    n, draws = 1024, 1024
+    halves = torch.zeros((2, 48, 64, 1))
+    halves[0, :24] = 1.0
+    halves[1, 24:] = 1.0
+    cases = [("full", (48, 64), None), ("strided", (48, 64), None),
+             ("strided", (384, 512), None)]
+    for r in range(2):
+        cases += [(kind, (48, 64), r) for kind in ("full", "strided")]
+    out = []
+    for kind, hw, region in cases:
+        mask = (None if region is None
+                else prepare_mask(halves[region], hw))
+        (pa, oa), (pb, ob) = (_draw_counts(dev, kind, hw, mask, draws, n)
+                              for dev in ("cuda", "cpu"))
+        stat, p = _chi2_two_sample(pa, pb, draws)
+        row = {"sampler": kind, "hw": list(hw), "region": region,
+               "points": int(((pa + pb) > 0).sum()), "coords": n * draws,
+               "chi2": stat, "p": p}
+        if len(oa) > 1:
+            row["offsets_chi2"], row["offsets_p"] = _chi2_two_sample(oa, ob)
+        out.append(row)
+    return out
+
+
+def phase_features(main_info, max_iter=200):
+    """The rest of the single-pair run, through ``strotss_torch.stylize``
+    and the CLI at full width (VGG16, 9 taps, 2179 channels, 1024
+    samples, bf16 policy):
+
+    - a blend of the main phase's style (720x560) with a second style
+      (600x800) at 0.7/0.3 (717/307 samples), 4 scales x ``max_iter``
+      (200) steps, with ``checkpoint_dir`` and ``log_every`` half of it; a
+      progress callback copies the checkpoint aside at scale 256, step
+      100;
+    - a resume from that copy: the state restored bit for bit, the first
+      loss after it the blended run's step 101, to rtol 1e-5;
+    - a refine of the main phase's result (``start_level=3``,
+      ``init_image=info["stylized"]``), without and with ``remat``, the
+      peak memory of each;
+    - the CLI at ``--level 1 --max_iter 5 --profile_dir``: the trace names
+      K1's, K2's and K3's kernels;
+    - the law of the CUDA generator's draws against the CPU's
+      (:func:`check_draw_law`)."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    import strotss_torch
+    from strotss_torch import cli, solve
+    from strotss_torch.programs import style_sample_counts
+    from strotss_torch.utils import checkpoint as ckpt
+
+    t0 = time.perf_counter()
+    content = _smooth_image(480, 640, 21)
+    style = _smooth_image(720, 560, 22)
+    style2 = _smooth_image(600, 800, 23)
+    weights = [0.7, 0.3]
+    counts = style_sample_counts(weights, 1024)
+    check(counts == (717, 307), f"features: counts {counts}")
+    tmp = tempfile.mkdtemp(prefix="strotss_features_")
+    try:
+        ck, aside = os.path.join(tmp, "ck"), os.path.join(tmp, "aside")
+        half = max_iter // 2
+        cfg = strotss_torch.StrotssConfig(max_iter=max_iter,
+                                          checkpoint_dir=ck, log_every=half)
+        steps = cfg.levels * cfg.max_iter
+        losses = {}
+
+        def progress(scl, done, total, metrics):
+            losses[(scl, done)] = metrics["loss"]
+            if (scl, done) == (256, half):
+                shutil.copytree(ck, aside)
+
+        img, info, launches, summary = _run_counted(
+            content, [style, style2], cfg, style_weights=weights,
+            progress_cb=progress)
+        emit({"phase": "features", "run": "blended", "config":
+              "StrotssConfig() with 2 styles at 0.7/0.3 (717/307 samples), "
+              f"checkpoint_dir, log_every={half}", "counts": list(counts),
+              "steps": steps, **summary})
+        _check_curves("features blended", info, falls=True)
+        check(img.dtype == torch.uint8 and tuple(img.shape) == (384, 512, 3),
+              f"features: blended output {img.dtype} {tuple(img.shape)}")
+        want = {"remd_mins": 2 * steps, "selfsim_fwd": steps,
+                "selfsim_bwd": steps, "block1_fwd": steps + 3 * cfg.levels,
+                "block1_bwd": steps, "sinkhorn_lse": 0, "sinkhorn_prep": 0}
+        check(launches == want,
+              f"features: blended launches {launches}, want {want}")
+        blended = launches
+
+        # the resume: hold what restore_state hands back to the saved file
+        with np.load(os.path.join(aside, "state.npz")) as data:
+            saved = {f[len("leaf_"):]: data[f] for f in data.files
+                     if f.startswith("leaf_")}
+        meta = ckpt.load_meta(aside)
+        restored = {}
+        real = solve.ckpt.restore_state
+
+        def spy(directory, template):
+            out = real(directory, template)
+            restored.update({k: v.cpu().numpy() for k, v in out.items()})
+            return out
+
+        solve.ckpt.restore_state = spy
+        try:
+            _, info_r, launches_r, summary_r = _run_counted(
+                content, [style, style2],
+                dataclasses.replace(cfg, checkpoint_dir=aside),
+                style_weights=weights)
+        finally:
+            solve.ckpt.restore_state = real
+        first = float(info_r["scales"][0]["curve"][0, 0])
+        want_first = losses[(256, half + 1)]
+        bitwise = (set(restored) == set(saved) and all(
+            np.array_equal(restored[k], saved[k]) for k in saved))
+        emit({"phase": "features", "run": "resume", "from": {
+            "scale_index": meta["scale_index"], "done_steps":
+            meta["done_steps"]}, "first_loss": first,
+            "blended_loss_after_the_copy": want_first,
+            "rel_err": abs(first - want_first) / abs(want_first),
+            "leaves_restored": len(restored), "bitwise": bitwise,
+            **summary_r})
+        check((meta["scale_index"], meta["done_steps"]) == (2, half),
+              f"features: checkpoint copied at {meta}")
+        check(bitwise, "features: restored state differs from the saved")
+        check(abs(first - want_first) <= 1e-5 * abs(want_first),
+              f"features: first loss after the resume {first}, the blended "
+              f"run's step {half + 1} {want_first}")
+        rest = 2 * cfg.max_iter - half  # scale 256's rest and scale 512
+        want = {"remd_mins": 2 * rest, "selfsim_fwd": rest,
+                "selfsim_bwd": rest, "block1_fwd": rest + 3 * 2,
+                "block1_bwd": rest, "sinkhorn_lse": 0, "sinkhorn_prep": 0}
+        check(launches_r == want,
+              f"features: resume launches {launches_r}, want {want}")
+        _check_curves("features resume", info_r, falls=False)
+
+        # the refine, without and with remat
+        refine = strotss_torch.StrotssConfig(max_iter=max_iter,
+                                             start_level=3)
+        main_alpha = main_info["scales"][-1]["alpha"]
+        first_losses, peaks = [], []
+        for remat in (False, True):
+            _, info_f, launches_f, summary_f = _run_counted(
+                content, style, dataclasses.replace(refine, remat=remat),
+                init_image=main_info["stylized"])
+            emit({"phase": "features", "run": "refine", "remat": remat,
+                  "start_level": 3, "alpha": info_f["scales"][0]["alpha"],
+                  "main_alpha": main_alpha, **summary_f})
+            want = {"remd_mins": 2 * max_iter, "selfsim_fwd": max_iter,
+                    "selfsim_bwd": max_iter,
+                    "block1_fwd": (2 if remat else 1) * max_iter + 2,
+                    "block1_bwd": max_iter, "sinkhorn_lse": 0,
+                    "sinkhorn_prep": 0}
+            check(launches_f == want, f"features: refine (remat {remat}) "
+                  f"launches {launches_f}, want {want}")
+            check([s["scale"] for s in info_f["scales"]] == [512]
+                  and info_f["scales"][0]["alpha"] == main_alpha,
+                  f"features: refine scales {info_f['scales']}")
+            # a refine starts near a minimum with fresh RMSprop slots, so
+            # its first steps may raise the loss: finite only
+            _check_curves("features refine", info_f, falls=False)
+            first_losses.append(float(info_f["scales"][0]["curve"][0, 0]))
+            peaks.append(summary_f["peak_mem_gib"])
+        print(f"features: refine peak memory {peaks[0]:.3f} GiB, with remat "
+              f"{peaks[1]:.3f} GiB", flush=True)
+        check(abs(first_losses[1] - first_losses[0])
+              <= 1e-5 * abs(first_losses[0]),
+              f"features: refine first losses {first_losses}")
+
+        # --profile_dir through the CLI
+        from PIL import Image
+
+        paths = []
+        for name, arr in (("c.png", content), ("s.png", style)):
+            paths.append(os.path.join(tmp, name))
+            Image.fromarray((arr[0] * 255).astype(np.uint8)).save(paths[-1])
+        prof = os.path.join(tmp, "prof")
+        rc = cli.main(paths + ["-o", os.path.join(tmp, "out.jpg"),
+                               "--level", "1", "--max_iter", "5",
+                               "--profile_dir", prof])
+        traces = sorted(os.listdir(prof)) if os.path.isdir(prof) else []
+        names = set()
+        for t in traces:
+            with open(os.path.join(prof, t)) as f:
+                names |= {e.get("name", "") for e in
+                          json.load(f).get("traceEvents", [])}
+        kernels = {k: any(k in nm for nm in names) for k in (
+            "remd_tc_kernel", "remd_tile_kernel", *_K2A_KERNELS,
+            *_K2B_KERNELS, "block1_fwd_kernel", "block1_dy1_kernel",
+            "block1_dx_kernel")}
+        emit({"phase": "features", "run": "profile_dir", "rc": rc,
+              "traces": traces, "kernels_named": kernels})
+        check(rc == 0 and traces and all(kernels.values()),
+              f"features: profile trace {traces} names {kernels}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    law = check_draw_law()
+    emit({"phase": "features", "run": "draw_law", "cases": law})
+    ps = [p for c in law for p in (c["p"], c.get("offsets_p"))
+          if p is not None]
+    print("features: draw law p-values " + ", ".join(
+        f"{c['sampler']} {c['hw'][0]}x{c['hw'][1]} region {c['region']}: "
+        f"{c['p']:.4g}" + (f" (offsets {c['offsets_p']:.4g})"
+                           if "offsets_p" in c else "") for c in law),
+        flush=True)
+    check(all(p > 1e-3 for p in ps),
+          f"features: the CUDA draws' law differs from the CPU's: {ps}")
+    emit({"phase": "features", "seconds": time.perf_counter() - t0,
+          "refine_peak_mem_gib": peaks[0],
+          "refine_remat_peak_mem_gib": peaks[1]})
+    return blended
+
+
 _TIMES = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")
 #: K1's own fields in the kernels line, beside the common ones
 _K1_FIELDS = ("route_taken", "host_ms", "tile_device_ms", "reduce_device_ms",
@@ -1459,10 +1744,11 @@ def _with_yuv(main, yuv):
     return entry
 
 
-def kernels_line(meas, launches, masked):
+def kernels_line(meas, launches, masked, features):
     """``launches``: the main path's counts (K4's from the sinkhorn
     phase's run (b)); ``masked``: the masked phase's, as
-    ``launches_masked``."""
+    ``launches_masked``; ``features``: the features phase's blended run's,
+    as ``launches_blended``."""
     ss_big = meas["selfsim_32769"]
     rows = [("remd_mins", _with_yuv(*meas["remd_mins"]))]
     for name in ("fwd", "bwd"):
@@ -1484,6 +1770,7 @@ def kernels_line(meas, launches, masked):
             "name": name, "route": "cuda", "source": _SOURCES[name],
             "replaces": _REPLACES[name], "launches": launches[name],
             "launches_masked": masked[name],
+            "launches_blended": features[name],
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
@@ -1521,8 +1808,9 @@ def main() -> int:
         # seeded random weights: the card's machine has no pretrained VGG
         vgg_params = random_params("16", seed=0)
         phase_slice(vgg_params)
-        launches = phase_main()
+        launches, main_info = phase_main()
         masked = phase_masked(vgg_params)
+        features = phase_features(main_info)
         phase_profile(vgg_params)
         cosine_pass_ms = meas["sinkhorn_lse"][0]["ms"]
         sk = phase_sinkhorn(cosine_pass_ms)
@@ -1532,7 +1820,8 @@ def main() -> int:
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    print(json.dumps(kernels_line(meas, launches, masked)), flush=True)
+    print(json.dumps(kernels_line(meas, launches, masked, features)),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -54,20 +54,26 @@ def stylize(
     (:func:`strotss_torch.ops.masks.load_mask` makes them from two colour
     mask images).
 
+    ``style`` may be a list of style images with ``style_weights`` (one
+    weight per style, relative): the style target is then a weighted
+    mixture of samples of each style
+    (:func:`strotss_torch.programs.style_sample_counts`); a weight of 0,
+    or one whose share of ``cfg.sample_size`` rounds to 0, drops its
+    style exactly. Not with masks. ``init_image``: an optional (1,H,W,3)
+    float warm start at any resolution: the first executed scale seeds
+    from it, resized once to that scale's resolution. Feed a finished
+    run's ``info["stylized"]`` back with ``cfg.start_level`` to refine it.
+
     Returns the uint8 HWC stylized image (on the run's device) and an info
     dict with per-scale losses and timings. ``device``: ``None`` (the
     first CUDA card), ``'cuda:<id>'`` or ``'cpu'``.
     """
-    if isinstance(style, (list, tuple)) or style_weights is not None:
-        raise NotImplementedError("multi-style blending is not ported to "
-                                  "strotss_torch yet (ROADMAP.md Queue 1 "
-                                  "item 8)")
-    if init_image is not None:
-        raise NotImplementedError("warm start (init_image) is not ported to "
-                                  "strotss_torch yet (ROADMAP.md Queue 1 "
-                                  "item 9)")
     check_image("content", content)
-    check_image("style", style)
+    multi = isinstance(style, (list, tuple))
+    for i, s in enumerate(style if multi else [style]):
+        check_image(f"style[{i}]" if multi else "style", s)
+    if init_image is not None:
+        check_image("init_image", init_image)
     check_masks(content_masks, style_masks)
     dev = resolve_device(device)
     cfg = cfg or StrotssConfig()
@@ -77,7 +83,12 @@ def stylize(
     if content_masks is not None:
         masks = {"content_masks": _to_device(content_masks, dev),
                  "style_masks": _to_device(style_masks, dev)}
+    style = ([_to_device(s, dev) for s in style] if multi
+             else _to_device(style, dev))
     return stylize_single(
-        _to_device(content, dev), _to_device(style, dev), cfg, vgg_params,
-        progress_cb=progress_cb, snapshot_cb=snapshot_cb, **masks,
+        _to_device(content, dev), style, cfg, vgg_params,
+        progress_cb=progress_cb, snapshot_cb=snapshot_cb,
+        init_image=(None if init_image is None
+                    else _to_device(init_image, dev)),
+        style_weights=style_weights, **masks,
     )

@@ -4,9 +4,12 @@ Same flags, defaults and log messages as ``strotss_tpu/cli.py``. The run
 goes to ``cuda:<--gpu_id>`` (alias ``--device_id``); ``--cpu`` asks for the
 CPU instead, and without a card and without ``--cpu`` the run stops with
 an error rather than falling back. ``--content_mask``/``--style_mask``
-run region-guided transfer. Flags of paths not ported yet (``--init``,
-blended styles, ``--checkpoint_dir``, ``--start_level``, ``--remat``,
-``--profile_dir``) raise a clear error. ``--sinkhorn``
+run region-guided transfer; ``--style2``/``--style_blend`` and
+``--styles``/``--style_weights`` blend styles; ``--init`` warm-starts and,
+with ``--start_level``, refines an earlier result; ``--checkpoint_dir``
+saves the state after every chunk and resumes from it; ``--remat``
+recomputes VGG's activations in the backward pass; ``--profile_dir``
+writes a ``torch.profiler`` Chrome trace of the run. ``--sinkhorn``
 takes the materialized Sinkhorn path below N * M = 2**30 samples and the
 streamed one (kernel K4) above, as the JAX package does.
 ``--no_pallas`` takes the plain PyTorch versions of the loss kernels and
@@ -26,13 +29,6 @@ from strotss_torch.utils.logging import make_logger
 from strotss_torch.utils.timing import Timer
 
 logger = make_logger("STROTSS")
-
-#: flag -> ROADMAP.md Queue 1 item that ports it
-_UNPORTED = {
-    "style2": 8, "style_blend": 8, "styles": 8, "style_weights": 8,
-    "init": 9, "checkpoint_dir": 9, "start_level": 9, "remat": 14,
-    "profile_dir": 14,
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -68,9 +64,12 @@ def build_parser() -> argparse.ArgumentParser:
                         help="accepted for the JAX CLI's sake; no effect")
     parser.add_argument("--sinkhorn", action="store_true",
                         help="full entropic OT instead of relaxed EMD")
-    parser.add_argument("--profile_dir", type=str, default=None)
+    parser.add_argument("--profile_dir", type=str, default=None,
+                        help="write a torch.profiler Chrome trace of the "
+                             "run into this directory")
     parser.add_argument("--save_every", type=int, default=0)
-    parser.add_argument("--checkpoint_dir", type=str, default=None)
+    parser.add_argument("--checkpoint_dir", type=str, default=None,
+                        help="chunk-boundary checkpoints; resumes if present")
     parser.add_argument("--sample_size", type=int, default=1024,
                         help="feature samples per step (reference pins 1024)")
     parser.add_argument("--debug_nans", action="store_true",
@@ -78,28 +77,61 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--taps", type=str, default=None,
                         help="comma-separated VGG tap layers "
                              "(default: the 9 STROTSS taps)")
-    parser.add_argument("--init", type=str, default=None)
-    parser.add_argument("--remat", action="store_true")
-    parser.add_argument("--style2", type=str, default=None)
-    parser.add_argument("--style_blend", type=float, default=None)
-    parser.add_argument("--styles", type=str, nargs="+", default=None)
+    parser.add_argument("--init", type=str, default=None,
+                        help="warm-start image: the first scale seeds from "
+                             "it (resized) instead of the cold content+"
+                             "style-mean seed")
+    parser.add_argument("--remat", action="store_true",
+                        help="recompute VGG activations in the backward "
+                             "pass (torch.utils.checkpoint): less "
+                             "activation memory for one more forward")
+    parser.add_argument("--style2", type=str, default=None,
+                        help="second style image to blend in, in "
+                             "proportion to --style_blend")
+    parser.add_argument("--style_blend", type=float, default=None,
+                        help="weight of --style2 in [0,1] (style_path gets "
+                             "1-w; default 0.5). Requires --style2")
+    parser.add_argument("--styles", type=str, nargs="+", default=None,
+                        help="additional style images beyond style_path to "
+                             "blend; weights via --style_weights")
     parser.add_argument("--style_weights", type=float, nargs="+",
-                        default=None)
-    parser.add_argument("--start_level", type=int, default=0)
+                        default=None,
+                        help="one non-negative weight per style, style_path "
+                             "first (len = 1 + len(--styles)); default "
+                             "equal. Requires --styles")
+    parser.add_argument("--start_level", type=int, default=0,
+                        help="skip the coarsest N scales (alpha still "
+                             "halves per skipped scale); with --init a "
+                             "refinement pass")
     return parser
 
 
-def check_unported(args: argparse.Namespace) -> None:
-    for flag, item in _UNPORTED.items():
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag} is not ported to strotss_torch yet (ROADMAP.md "
-                f"Queue 1 item {item}); use python -m strotss_tpu.cli")
+def check_blend_args(args: argparse.Namespace) -> None:
+    """The blending flags' consistency, before any image is read
+    (``strotss_tpu/cli.py:197-226``)."""
+    if args.style_blend is not None and not args.style2:
+        raise ValueError(
+            "--style_blend requires --style2 (nothing to blend with)")
+    blend = 0.5 if args.style_blend is None else args.style_blend
+    if args.style2 and not 0.0 <= blend <= 1.0:
+        raise ValueError(f"--style_blend must be in [0, 1], got {blend}")
+    if args.styles and (args.style2 or args.style_blend is not None):
+        raise ValueError(
+            "--styles is mutually exclusive with --style2/--style_blend "
+            "(fold the second style into --styles with --style_weights)")
+    if args.style_weights is not None and not args.styles:
+        raise ValueError(
+            "--style_weights requires --styles (nothing to weight)")
+    if args.styles and args.style_weights is not None \
+            and len(args.style_weights) != 1 + len(args.styles):
+        raise ValueError(
+            f"--style_weights needs {1 + len(args.styles)} numbers "
+            f"(style_path first, then the {len(args.styles)} --styles), "
+            f"got {len(args.style_weights)}")
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    check_unported(args)
 
     timer = Timer()
     timer.start()
@@ -130,11 +162,39 @@ def main(argv=None) -> int:
         use_pallas=not args.no_pallas,
         use_sinkhorn=args.sinkhorn,
         precompile=not args.no_precompile,
+        profile_dir=args.profile_dir,
         save_every=args.save_every,
+        checkpoint_dir=args.checkpoint_dir,
         taps=tuple(args.taps.split(",")) if args.taps else None,
+        start_level=args.start_level,
+        remat=args.remat,
     )
+    check_blend_args(args)
+
     content = load_image(args.content_path, max_size=args.max_size)
     style = load_image(args.style_path, max_size=args.max_size)
+    style_weights = None
+    if args.style2:
+        blend = 0.5 if args.style_blend is None else args.style_blend
+        style = [style, load_image(args.style2, max_size=args.max_size)]
+        style_weights = [1.0 - blend, blend]
+        logger.info(
+            f"Blending styles: {args.style_path} ({style_weights[0]:.2f}) + "
+            f"{args.style2} ({style_weights[1]:.2f}).")
+    elif args.styles:
+        style = [style] + [load_image(p, max_size=args.max_size)
+                           for p in args.styles]
+        # bad weight values fail in style_sample_counts with its messages
+        style_weights = (list(args.style_weights)
+                         if args.style_weights is not None
+                         else [1.0] * len(style))
+        names = [args.style_path, *args.styles]
+        logger.info("Blending styles: " + " + ".join(
+            f"{p} ({w:g})" for p, w in zip(names, style_weights)) + ".")
+    init_image = None
+    if args.init:
+        init_image = load_image(args.init, max_size=args.max_size)
+        logger.info(f"Warm-starting from {args.init}.")
 
     content_masks = style_masks = None
     if args.content_mask and args.style_mask:
@@ -148,7 +208,8 @@ def main(argv=None) -> int:
     try:
         from tqdm import tqdm
 
-        bar = tqdm(total=cfg.levels * cfg.max_iter)
+        # skipped coarse scales never call progress
+        bar = tqdm(total=(cfg.levels - cfg.start_level) * cfg.max_iter)
         prog = {"base": 0, "scl": None}
 
         def progress(scl, done, total, metrics):
@@ -175,9 +236,16 @@ def main(argv=None) -> int:
         def snapshot(scl, it, img):
             write_image(img, f"{stem}_scale{scl}_it{it:04d}{ext or '.jpg'}")
 
-    final, _ = stylize(content, style, cfg, content_masks=content_masks,
+    def run():
+        return stylize(content, style, cfg, content_masks=content_masks,
                        style_masks=style_masks, progress_cb=progress,
-                       snapshot_cb=snapshot, device=device)
+                       snapshot_cb=snapshot, init_image=init_image,
+                       style_weights=style_weights, device=device)
+
+    if cfg.profile_dir:
+        final = profiled(run, cfg.profile_dir, device)
+    else:
+        final, _ = run()
     if bar is not None:
         bar.close()
 
@@ -185,6 +253,27 @@ def main(argv=None) -> int:
     logger.info(f"Done in {timer.elapsed_time:.2f}s.")
     write_image(final, args.output_path)
     return 0
+
+
+def profiled(run, directory: str, device):
+    """``run()`` under ``torch.profiler`` (the host's activity, and the
+    card's on a CUDA device); the Chrome trace goes to
+    ``<directory>/strotss_trace.json``. Returns ``run()``'s image."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(directory, exist_ok=True)
+    with profile(activities=activities) as prof:
+        final, _ = run()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    path = os.path.join(directory, "strotss_trace.json")
+    prof.export_chrome_trace(path)
+    logger.info(f"Wrote profiler trace to {path}.")
+    return final
 
 
 if __name__ == "__main__":

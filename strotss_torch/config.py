@@ -2,10 +2,9 @@
 
 The port's own copy of ``strotss_tpu/config.py``'s ``StrotssConfig``, with
 the same fields and defaults (a test holds them equal). Importing the JAX
-package's module would import JAX, so the port keeps this copy. Fields of
-paths not ported yet (warm start, checkpoints, sharding, activation
-recompute, profiling) exist so that configurations carry over; the port
-raises where one of them asks for such a path.
+package's module would import JAX, so the port keeps this copy. The
+sharding fields exist so that configurations carry over; the port raises
+where one of them is set (ROADMAP.md Queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -41,9 +40,11 @@ class StrotssConfig:
     pyramid_levels: int = 5
 
     # --- knobs beyond the reference ----------------------------------------
-    #: skip the coarsest ``start_level`` scales (not ported yet: must be 0)
+    #: skip the coarsest ``start_level`` scales (alpha still halves on
+    #: each); with an ``init_image``, a refinement pass
     start_level: int = 0
-    #: recompute VGG activations in the backward pass (not ported yet)
+    #: recompute VGG activations in the backward pass
+    #: (``torch.utils.checkpoint``): less memory, one more forward a step
     remat: bool = False
     #: dtype for the VGG conv path; losses always run in float32.
     compute_dtype: str = "bfloat16"
@@ -61,11 +62,12 @@ class StrotssConfig:
     #: the bf16 policy and use_pallas, F.conv2d otherwise), 'pallas' (fused;
     #: its plain version on the CPU) or 'xla' (F.conv2d)
     block1_impl: str = "auto"
-    #: optional torch.profiler trace directory (not ported yet)
+    #: torch.profiler trace directory (the CLI traces the run into it)
     profile_dir: Optional[str] = None
     #: dump intermediate stylized images every N steps (0 = off)
     save_every: int = 0
-    #: checkpoint directory (not ported yet)
+    #: checkpoint directory: the state is saved after every chunk, and a
+    #: run of the same configuration resumes from it
     checkpoint_dir: Optional[str] = None
     #: Sinkhorn transport instead of REMD
     use_sinkhorn: bool = False

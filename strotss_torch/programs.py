@@ -1,5 +1,6 @@
 """One optimization step and its pieces, the counterpart of
-``strotss_tpu/programs.py`` (lines 48-136, 200-235, 505-539, 605-675).
+``strotss_tpu/programs.py`` (lines 48-136, 159-236, 287-317, 505-539,
+605-675).
 
 A step folds the Laplacian pyramid into the image, runs VGG with the
 STROTSS taps, samples content and prediction rows of the hypercolumn at
@@ -16,9 +17,12 @@ regions).
 
 from __future__ import annotations
 
-from typing import Callable, List, NamedTuple, Sequence
+import contextlib
+from typing import Callable, List, NamedTuple, Sequence, Tuple
 
+import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from strotss_torch.config import StrotssConfig
 from strotss_torch.models.vgg import STROTSS_DEFAULT_TAPS, VGG
@@ -27,6 +31,7 @@ from strotss_torch.ops.image import (
     make_laplacian,
     make_laplacian_pyramid,
     resize_bilinear,
+    resize_max_hw,
 )
 from strotss_torch.ops.losses import content_loss, style_loss
 from strotss_torch.ops.sampling import sample_paired
@@ -55,6 +60,7 @@ class StepSpec(NamedTuple):
     remd_impl: str
     selfsim_impl: str
     block1_impl: str
+    remat: bool = False
 
 
 def _block1_route(cfg: StrotssConfig, device) -> str:
@@ -104,6 +110,7 @@ def spec_from_config(cfg: StrotssConfig, device="cpu",
         remd_impl="plain" if masked and cfg.use_sinkhorn else impl,
         selfsim_impl=impl,
         block1_impl=_block1_route(cfg, device),
+        remat=cfg.remat,
     )
 
 
@@ -117,6 +124,30 @@ def set_precision(spec: StepSpec) -> None:
     itself). These are process-wide PyTorch switches."""
     torch.set_float32_matmul_precision("highest")
     torch.backends.cudnn.allow_tf32 = spec.compute_dtype == "bfloat16"
+
+
+@contextlib.contextmanager
+def precision(spec: StepSpec):
+    """:func:`set_precision` for the body of the ``with``, then every
+    switch it sets back as it was: the float32 matmul precision, oneDNN's
+    and cuBLAS's fp32 modes and cuDNN's TF32 flag, so a run leaves the
+    process's numerics as it found them."""
+    b = torch.backends
+    try:
+        legacy = torch.get_float32_matmul_precision()
+    except RuntimeError:  # the backends were set apart: no common value
+        legacy = None
+    saved = (b.mkldnn.matmul.fp32_precision, b.cuda.matmul.fp32_precision,
+             b.cudnn.allow_tf32)
+    set_precision(spec)
+    try:
+        yield
+    finally:
+        if legacy is not None:
+            torch.set_float32_matmul_precision(legacy)
+        b.mkldnn.matmul.fp32_precision = saved[0]
+        b.cuda.matmul.fp32_precision = saved[1]
+        b.cudnn.allow_tf32 = saved[2]
 
 
 class RMSprop:
@@ -144,16 +175,80 @@ def extract_hypercolumn(vgg: VGG, img: torch.Tensor) -> List[torch.Tensor]:
     return [img] + vgg(img)
 
 
-def scale_seed(mode: str, chw, shw, levels: int, content, style, prev):
+def extract_for_grad(spec: StepSpec, vgg: VGG,
+                     img: torch.Tensor) -> List[torch.Tensor]:
+    """The loss path's extraction: :func:`extract_hypercolumn`, with the
+    VGG forward under ``torch.utils.checkpoint`` when ``spec.remat`` is
+    set, so the backward pass recomputes the activations instead of
+    keeping them (``strotss_tpu/programs.py:159-172``). The recompute
+    runs block1's forward again, so kernel K3a launches twice a step. The
+    per-scale content and style extractions run without gradients and
+    keep nothing either way."""
+    if not spec.remat:
+        return extract_hypercolumn(vgg, img)
+    return [img] + torch.utils.checkpoint.checkpoint(vgg, img,
+                                                     use_reentrant=False)
+
+
+def warm_init_hw(content_h: int, content_w: int,
+                 cfg: StrotssConfig) -> Tuple[int, int]:
+    """The (h, w) a warm-start ``init_image`` is resized to: the first
+    executed scale's (``cfg.start_level``'s) resolution. One direct
+    resize to it is the resample a full run's scale handoff makes, so a
+    refine seeded with ``info["stylized"]`` reproduces a full run's tail
+    (``strotss_tpu/programs.py:183-198``)."""
+    return resize_max_hw(content_h, content_w,
+                         cfg.scale_sizes()[cfg.start_level])
+
+
+def style_sample_counts(style_weights, sample_size: int) -> Tuple[int, ...]:
+    """Largest-remainder apportionment of ``sample_size`` style samples
+    among blended styles, on the host (``strotss_tpu/programs.py:
+    287-317``): floor each ``w_i * n``, then hand the remaining samples to
+    the largest fractional remainders, earlier styles first on ties."""
+    w = np.asarray(style_weights, np.float64)
+    if w.ndim != 1 or w.size == 0:
+        raise ValueError(
+            f"style_weights must be a 1-D sequence, got shape {w.shape}")
+    if not np.all(np.isfinite(w)) or np.any(w < 0) or w.sum() <= 0:
+        raise ValueError(
+            "style_weights must be finite, >= 0, with a positive sum, got "
+            f"{list(map(float, w))}")
+    raw = w / w.sum() * sample_size
+    base = np.floor(raw).astype(np.int64)
+    short = sample_size - int(base.sum())
+    order = np.argsort(-(raw - base), kind="stable")
+    base[order[:short]] += 1
+    return tuple(int(b) for b in base)
+
+
+def scale_seed(mode: str, chw, shw, levels: int, content, style, prev,
+               style_weights=None):
     """Per-scale init: resize the inputs, build the Laplacian seed, split
     it into pyramid variables. ``mode`` is 'first' (content Laplacian plus
     the style's mean colour), 'mid' (resized previous result plus content
-    Laplacian) or 'last' (resized previous result)."""
+    Laplacian) or 'last' (resized previous result).
+
+    Blending: ``style`` is a tuple of images with a tuple ``shw`` of their
+    shapes and ``style_weights`` one weight each; 'first' then adds the
+    weight-blended mean colour, and ``scl_s`` is the tuple of resized
+    styles."""
     scl_c = resize_bilinear(content, chw)
-    scl_s = resize_bilinear(style, shw)
+    if isinstance(style, tuple):
+        scl_s = tuple(resize_bilinear(s, hw) for s, hw in zip(style, shw))
+    else:
+        scl_s = resize_bilinear(style, shw)
     lap = make_laplacian(scl_c)
     if mode == "first":
-        sty = lap + torch.mean(scl_s, dim=(1, 2), keepdim=True)
+        if isinstance(scl_s, tuple):
+            w = torch.tensor(style_weights, dtype=torch.float32,
+                             device=scl_c.device)
+            w = w / torch.sum(w)
+            mean_color = sum(w[i] * torch.mean(s, dim=(1, 2), keepdim=True)
+                             for i, s in enumerate(scl_s))
+        else:
+            mean_color = torch.mean(scl_s, dim=(1, 2), keepdim=True)
+        sty = lap + mean_color
     elif mode == "mid":
         sty = resize_bilinear(prev, chw) + lap
     else:
@@ -203,9 +298,12 @@ def optimization_steps(spec: StepSpec, n_steps: int, vgg: VGG, content_feats,
         coords = coords_fn(t)
         leaves = [p.requires_grad_(True) for p in pyramid]
         img = fold_laplacian_pyramid(leaves)
-        pred = extract_hypercolumn(vgg, img)
+        pred = extract_for_grad(spec, vgg, img)
         loss, lc, ls = step_losses(spec, content_feats, pred, style_targets,
                                    style_moments, alpha, coords)
+        # under remat nothing else holds the taps: the backward recomputes
+        # them instead of keeping these alive beside the recomputed ones
+        del pred
         grads = torch.autograd.grad(loss, leaves)
         opt.step(grads)
         rows.append(torch.stack([loss, lc, ls]).detach())

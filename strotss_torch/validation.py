@@ -1,7 +1,7 @@
-"""Fail-fast validation of the public API's image and mask inputs, the
-counterpart of ``strotss_tpu/validation.py:25-111`` (the unbatched
-branches: batched pairs and ``region_valid`` are ROADMAP.md Queue 1 item
-10)."""
+"""Fail-fast validation of the public API's image and mask inputs and of
+``start_level``, the counterpart of ``strotss_tpu/validation.py:25-118``
+(the unbatched branches: batched pairs and ``region_valid`` are
+ROADMAP.md Queue 1 item 10)."""
 
 from __future__ import annotations
 
@@ -66,3 +66,11 @@ def check_masks(content_masks, style_masks) -> None:
         raise ValueError(
             f"content_masks and style_masks must pair region-for-region: "
             f"got {kc} content regions vs {ks} style regions")
+
+
+def check_start_level(cfg) -> None:
+    """``start_level`` must leave at least one scale to run."""
+    if not 0 <= cfg.start_level < cfg.levels:
+        raise ValueError(
+            f"start_level must be in [0, levels), got start_level="
+            f"{cfg.start_level} with levels={cfg.levels}")

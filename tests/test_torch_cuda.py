@@ -526,3 +526,95 @@ def test_masked_step_on_card(cuda_device):
                                     coords)
     np.testing.assert_allclose([float(v.detach()) for v in got],
                                [float(v) for v in want], rtol=1e-3)
+
+
+def _launches():
+    return {"remd_mins": remd.mins.launches,
+            "selfsim_fwd": selfsim.selfsim_fwd.launches,
+            "selfsim_bwd": selfsim.selfsim_bwd.launches,
+            "block1_fwd": block1.block1_fwd.launches,
+            "block1_bwd": block1.block1_bwd.launches}
+
+
+def _counted_run(content, style, cfg, **kw):
+    import strotss_torch
+
+    before = _launches()
+    img, info = strotss_torch.stylize(content, style, cfg,
+                                      vgg_params=random_params("16", 0),
+                                      device="cuda", **kw)
+    torch.cuda.synchronize()
+    return img, info, {k: v - before[k] for k, v in _launches().items()}
+
+
+def _small_images():
+    rng = np.random.default_rng(0)
+    return (rng.random((1, 48, 64, 3)).astype(np.float32),
+            rng.random((1, 64, 56, 3)).astype(np.float32),
+            rng.random((1, 40, 72, 3)).astype(np.float32))
+
+
+@pytest.mark.cuda
+def test_blended_run_on_card(cuda_device):
+    """Two styles at 0.7/0.3, 2 scales x 3 steps at full width: K1 twice,
+    K2a, K2b and K3b once a step, K3a once a step and once an image a
+    scale (3 images)."""
+    from strotss_torch import StrotssConfig
+
+    content, style, style2 = _small_images()
+    cfg = StrotssConfig(levels=2, max_iter=3)
+    img, info, got = _counted_run(content, [style, style2], cfg,
+                                  style_weights=[0.7, 0.3])
+    assert got == {"remd_mins": 12, "selfsim_fwd": 6, "selfsim_bwd": 6,
+                   "block1_fwd": 6 + 3 * 2, "block1_bwd": 6}
+    assert all(np.all(np.isfinite(s["curve"])) for s in info["scales"])
+    assert img.dtype == torch.uint8 and img.is_cuda
+
+
+@pytest.mark.cuda
+def test_resume_on_card(cuda_device, tmp_path):
+    """A run copies its checkpoint aside after scale 64's first chunk; a
+    resume from the copy takes up at step 3 (its first loss, a forward
+    from the restored state, is the run's step 3) and launches only what
+    is left."""
+    import dataclasses
+    import shutil
+
+    from strotss_torch import StrotssConfig
+
+    content, style, _ = _small_images()
+    ck, aside = str(tmp_path / "ck"), str(tmp_path / "aside")
+    cfg = StrotssConfig(levels=2, max_iter=4, log_every=2, checkpoint_dir=ck)
+    seen = {}
+
+    def progress(scl, done, total, m):
+        seen[(scl, done)] = m["loss"]
+        if (scl, done) == (64, 2):
+            shutil.copytree(ck, aside)
+
+    _counted_run(content, style, cfg, progress_cb=progress)
+    _, info, got = _counted_run(
+        content, style, dataclasses.replace(cfg, checkpoint_dir=aside))
+    assert got == {"remd_mins": 12, "selfsim_fwd": 6, "selfsim_bwd": 6,
+                   "block1_fwd": 6 + 2 * 2, "block1_bwd": 6}
+    first = float(info["scales"][0]["curve"][0, 0])
+    assert first == pytest.approx(seen[(64, 3)], rel=1e-5)
+
+
+@pytest.mark.cuda
+def test_remat_launches_on_card(cuda_device):
+    """Under remat K3a runs twice a step (the backward recomputes it)."""
+    import dataclasses
+
+    from strotss_torch import StrotssConfig
+
+    content, style, _ = _small_images()
+    cfg = StrotssConfig(levels=1, max_iter=3)
+    counts = []
+    for remat in (False, True):
+        _, info, got = _counted_run(content, style,
+                                    dataclasses.replace(cfg, remat=remat))
+        counts.append(got["block1_fwd"])
+        assert got["block1_bwd"] == 3
+        assert np.all(np.isfinite(info["scales"][0]["curve"]))
+    assert counts == [3 + 2, 2 * 3 + 2]

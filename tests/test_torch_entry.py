@@ -45,13 +45,64 @@ def test_cli_parses_the_jax_flags():
     assert args.device_id == 3 and args.level == 2
 
 
-@pytest.mark.parametrize("flags", [["--init", "x.png"],
+def _pngs(tmp_path):
+    from PIL import Image
+
+    rng = np.random.default_rng(0)
+    for name, shape in (("c.png", (40, 48, 3)), ("s.png", (36, 52, 3)),
+                        ("a.png", (44, 36, 3))):
+        Image.fromarray((rng.random(shape) * 255).astype(np.uint8)).save(
+            tmp_path / name)
+
+
+_TINY_CLI = ["--cpu", "--level", "1", "--max_iter", "2", "--taps",
+             "block1_conv1", "--compute_dtype", "float32", "--sample_size",
+             "64", "--max_size", "48"]
+
+
+def _spy(monkeypatch):
+    """Record each stylize_single call the CLI and the API make."""
+    import strotss_torch.api as api
+
+    calls = []
+    real = api.stylize_single
+
+    def spy(*args, **kw):
+        out = real(*args, **kw)
+        calls.append((args, kw, out[1]))
+        return out
+
+    monkeypatch.setattr(api, "stylize_single", spy)
+    return calls
+
+
+@pytest.mark.parametrize("flags", [["--init", "{c}"],
                                    ["--remat"],
-                                   ["--checkpoint_dir", "d"],
-                                   ["--styles", "a.png"]])
-def test_cli_unported_flags_raise(flags):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tcli.main(["c.png", "s.png", "--cpu"] + flags)
+                                   ["--checkpoint_dir", "{d}"],
+                                   ["--styles", "{a}"]])
+def test_cli_unported_flags_raise(flags, tmp_path, monkeypatch):
+    """These flags once raised NotImplementedError; each now runs on the
+    CPU and reaches the run."""
+    _pngs(tmp_path)
+    calls = _spy(monkeypatch)
+    flags = [f.format(c=tmp_path / "c.png", d=tmp_path / "d",
+                      a=tmp_path / "a.png") for f in flags]
+    out = tmp_path / "out.jpg"
+    assert tcli.main([str(tmp_path / "c.png"), str(tmp_path / "s.png"),
+                      "-o", str(out)] + _TINY_CLI + flags) == 0
+    assert out.exists()
+    (args, kw, info), = calls
+    cfg = args[2]
+    if flags[0] == "--init":
+        assert tuple(kw["init_image"].shape) == (1, 40, 48, 3)
+    elif flags[0] == "--remat":
+        assert cfg.remat
+    elif flags[0] == "--checkpoint_dir":
+        assert cfg.checkpoint_dir == flags[1]
+        assert os.path.exists(os.path.join(flags[1], "state.npz"))
+    else:
+        assert len(args[1]) == 2 and kw["style_weights"] == [1.0, 1.0]
+    assert np.all(np.isfinite(info["scales"][0]["curve"]))
 
 
 def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
@@ -66,14 +117,37 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-def test_api_rejects_unported_paths():
-    img = np.zeros((1, 8, 8, 3), np.float32)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        strotss_torch.stylize(img, img, init_image=img, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        strotss_torch.stylize(img, [img, img], device="cpu")
+def test_api_rejects_unported_paths(monkeypatch):
+    """A warm start and a style list once raised NotImplementedError; both
+    now run on the CPU and reach the run. A bad image shape still
+    raises."""
+    calls = _spy(monkeypatch)
+    rng = np.random.default_rng(1)
+    img = rng.random((1, 40, 40, 3)).astype(np.float32)
+    cfg = strotss_torch.StrotssConfig(
+        levels=1, max_iter=2, sample_size=32, taps=("block1_conv1",),
+        compute_dtype="float32")
+    warm, _ = strotss_torch.stylize(img, img, cfg, init_image=img[:, :24],
+                                    device="cpu")
+    cold, _ = strotss_torch.stylize(img, img, cfg, device="cpu")
+    assert tuple(calls[0][1]["init_image"].shape) == (1, 24, 40, 3)
+    assert (warm.int() - cold.int()).abs().max() > 0
+    _, info = strotss_torch.stylize(img, [img, img[:, :, :32]], cfg,
+                                    style_weights=[0.5, 0.5], device="cpu")
+    assert len(calls[2][0][1]) == 2
+    assert np.all(np.isfinite(info["scales"][0]["curve"]))
     with pytest.raises(ValueError, match=r"\(1, H, W, 3\)"):
         strotss_torch.stylize(img[0], img, device="cpu")
+    with pytest.raises(ValueError, match=r"style\[1\] must have shape"):
+        strotss_torch.stylize(img, [img, img[0]], device="cpu")
+
+
+def test_api_sharding_still_unported():
+    img = np.zeros((1, 8, 8, 3), np.float32)
+    for field in ("shard_samples", "shard_spatial"):
+        cfg = strotss_torch.StrotssConfig(**{field: True})
+        with pytest.raises(NotImplementedError, match="item 13"):
+            strotss_torch.stylize(img, img, cfg, device="cpu")
 
 
 def test_cli_runs_on_cpu(tmp_path):

@@ -28,6 +28,39 @@ def _rand(seed, shape, positive=False):
     return a.astype(np.float32)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def full_float32_matmuls():
+    """The goldens and tolerances below assume float32 matmuls in full
+    float32, the state the port's main path sets
+    (``programs.set_precision``: 'highest'). A process that left a
+    reduced-precision mode behind ('medium' makes oneDNN round the
+    operands to bf16: 1.1e-3 off the l2 golden) would fail them, so the
+    module pins it and restores what it found."""
+    saved = (torch.get_float32_matmul_precision(),
+             torch.backends.mkldnn.matmul.fp32_precision)
+    torch.set_float32_matmul_precision("highest")
+    yield
+    torch.set_float32_matmul_precision(saved[0])
+    torch.backends.mkldnn.matmul.fp32_precision = saved[1]
+
+
+def _numerics() -> str:
+    """The process's matmul state and the CPU's vector flags, for a
+    failure's message."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            flags = next((ln.split(":", 1)[1].split() for ln in f
+                          if ln.startswith("flags")), [])
+    except OSError:
+        flags = []
+    vec = sorted(x for x in flags if x.startswith(("avx", "amx", "fma")))
+    return (f"float32 matmul precision "
+            f"{torch.get_float32_matmul_precision()}, oneDNN fp32 "
+            f"{torch.backends.mkldnn.matmul.fp32_precision}, threads "
+            f"{torch.get_num_threads()}, CPU "
+            f"{torch.backends.cpu.get_cpu_capability()} {' '.join(vec)}")
+
+
 def _grad_close(g, ref, frac=1e-4):
     g, ref = np.asarray(g), np.asarray(ref)
     assert np.abs(g - ref).max() <= frac * np.abs(ref).max(), (
@@ -40,7 +73,8 @@ def _grad_close(g, ref, frac=1e-4):
 def test_distance_golden(golden, dist):
     g = golden("losses")
     out = TL.dist_metrics[dist](_t(g["x"]), _t(g["y"]))
-    np.testing.assert_allclose(out.numpy(), g[dist], atol=1e-5)
+    np.testing.assert_allclose(out.numpy(), g[dist], atol=1e-5,
+                               err_msg=_numerics())
 
 
 @pytest.mark.parametrize("dist", ["cosine", "l2", "both"])

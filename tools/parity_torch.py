@@ -174,23 +174,27 @@ def _launch_counters():
 
 
 def cpu_draws(seed, cm, sm, device):
-    """A ``CoordsSource`` drawing on a CPU generator seeded with ``seed``:
-    the coordinates of the port's CPU run of that seed, moved to
-    ``device``, so that a run on a card samples what the CPU run did."""
+    """A ``CoordsSource`` drawing on the CPU generators of ``seed``'s
+    scales (``solve.scale_generators``): the coordinates of the port's CPU
+    run of that seed, moved to ``device``, so that a run on a card samples
+    what the CPU run did."""
     import torch
 
     from strotss_torch.ops import sampling
+    from strotss_torch.solve import scale_generators
 
-    gen = torch.Generator()
-    gen.manual_seed(seed)
+    gens = {}
 
     def coords(i, kind, step, hw, n, region=None):
+        if i not in gens:
+            gens[i] = scale_generators(seed, i, "cpu")
         mask = None
         if region is not None:
             raw = sm if kind == "style" else cm
             mask = sampling.prepare_mask(torch.tensor(raw[region]), hw)
         draw = sampling.full_grid_coords if kind == "style" else \
             sampling.strided_grid_coords
+        gen = gens[i][0 if kind == "style" else 1]
         return draw(gen, hw, n, "cpu", mask=mask).to(device)
 
     return coords
