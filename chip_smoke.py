@@ -20,7 +20,14 @@ through
 ``strotss_torch.stylize``, counting each kernel's launches. It drives the
 same run with two region masks (BASELINE config 3, masks loaded from PNGs
 by ``strotss_torch.ops.masks.load_mask``), after holding one masked step's
-kernel losses to the plain ones. The features phase blends a second
+kernel losses to the plain ones. The batch phase runs 8 pairs at full
+width through ``strotss_torch.parallel.stylize_batch`` (BASELINE config
+4; VGG block1 over the pair axis, one launch of K3a and K3b a step),
+holds 10 batched steps to each pair's single step from the same state,
+and runs a masked batch with a padded region; the serve phase runs
+``python -m strotss_torch.serve`` on 6 jobs (a batch of 4, a bad job, a
+warm job). The kernel phase also holds K3a and K3b on a batch of images
+bit for bit to one-image launches. The features phase blends a second
 style with checkpoints, resumes from a checkpoint copied aside, refines
 the default run's result at ``start_level=3`` without and with
 ``remat``, traces the CLI with ``--profile_dir`` and tests the law of
@@ -658,6 +665,111 @@ def check_block1(h, w, seed, rates):
     return out
 
 
+def check_block1_batch(b, h, w, seed, rates):
+    """K3a and K3b over a pair axis: B images of (H, W) in one launch a
+    direction. Each image's taps and dx must be bitwise equal to its own
+    one-image launch (the tile walk crosses from image to image, and the
+    next tile's prefetch reads the next image), and the batch is held to
+    the plain version at check_block1's limits. Times the batched launch
+    against B one-image launches."""
+    import torch
+
+    from strotss_torch.models.weights import random_params
+    from strotss_torch.ops.kernels import block1 as B
+
+    p = random_params("16", seed)
+    k1 = p["block1_conv1"]["kernel"].cuda()
+    k2 = p["block1_conv2"]["kernel"].cuda()
+    b1 = 0.1 * _inputs(seed + 1, (64,))
+    b2 = 0.1 * _inputs(seed + 2, (64,))
+    x = _inputs(seed + 3, (b, h, w, 3))
+    g1 = _inputs(seed + 4, (b, h, w, 64))
+    g2 = _inputs(seed + 5, (b, h, w, 64))
+    name = f"block1 {b}x{h}x{w}"
+
+    before = (B.block1_fwd.launches, B.block1_bwd.launches)
+    t1, t2 = B.block1_fwd(x, k1, b1, k2, b2)
+    dx = B.block1_bwd(t1, t2, g1, g2, k1, k2)
+    check((B.block1_fwd.launches - before[0],
+           B.block1_bwd.launches - before[1]) == (1, 1),
+          f"{name}: a batch must be one launch a direction")
+    for i in range(b):
+        o1, o2 = B.block1_fwd(x[i], k1, b1, k2, b2)
+        odx = B.block1_bwd(t1[i], t2[i], g1[i], g2[i], k1, k2)
+        check(torch.equal(t1[i], o1) and torch.equal(t2[i], o2)
+              and torch.equal(dx[i], odx),
+              f"{name}: image {i} differs from its one-image launch")
+    p1, p2 = B.block1_plain(x, k1, b1, k2, b2)
+    pdx = B.block1_bwd_plain(t1, t2, g1, g2, k1, k2)
+    e1, e2, edx = _grad_err(t1, p1), _grad_err(t2, p2), _grad_err(dx, pdx)
+    check(e1 <= 1e-5 and e2 <= 1e-3 and edx <= 1e-3,
+          f"{name}: errors against the plain version (of max|ref|) tap1 "
+          f"{e1}, tap2 {e2}, dx {edx}")
+
+    def singles_fwd():
+        for i in range(b):
+            B.block1_fwd(x[i], k1, b1, k2, b2)
+
+    def singles_bwd():
+        for i in range(b):
+            B.block1_bwd(t1[i], t2[i], g1[i], g2[i], k1, k2)
+
+    def bwd():
+        return B.block1_bwd(t1, t2, g1, g2, k1, k2)
+
+    # yardstick: cuDNN on the same batch, two bf16 F.conv2d + bias + ReLU
+    # and their autograd backward
+    import torch.nn.functional as F
+
+    bf = torch.bfloat16
+    xb = x.permute(0, 3, 1, 2).to(bf).requires_grad_(True)
+    kb1, kb2, bb1, bb2 = (t.to(bf) for t in (k1, k2, b1, b2))
+
+    def lib_fwd():
+        y1 = torch.relu(F.conv2d(xb, kb1, bb1, padding=1))
+        return y1, torch.relu(F.conv2d(y1, kb2, bb2, padding=1))
+
+    ly1, ly2 = lib_fwd()
+    gb = [g.permute(0, 3, 1, 2).to(bf) for g in (g1, g2)]
+
+    flops = 2.0 * b * h * w * 64 * (27 + 576)
+    wbytes = 4.0 * (64 * 27 + 64 + 64 * 576 + 64)
+    fwd_bytes = b * h * w * (3 + 2 * 64) * 4.0 + wbytes
+    bwd_bytes = b * h * w * (4 * 64 + 3) * 4.0 + wbytes
+    dy1_dev = device_ms(bwd, ("block1_dy1_kernel",))
+    dx_dev = device_ms(bwd, ("block1_dx_kernel",))
+    out = {
+        "fwd": {"shape": [b, h, w], "tap1_err": e1, "tap2_err": e2,
+                "max_abs_err": float(max((t1 - p1).abs().max(),
+                                         (t2 - p2).abs().max())),
+                "ms": time_ms(lambda: B.block1_fwd(x, k1, b1, k2, b2)),
+                "device_ms": device_ms(lambda: B.block1_fwd(x, k1, b1, k2,
+                                                            b2),
+                                       ("block1_fwd_kernel",)),
+                "singles_ms": time_ms(singles_fwd),
+                "plain_ms": time_ms(lambda: B.block1_plain(x, k1, b1, k2,
+                                                           b2)),
+                "library_ms": time_ms(lib_fwd),
+                **dict(zip(("bound_ms", "bound_by"),
+                           bound_ms(flops, fwd_bytes, rates, "bf16")))},
+        "bwd": {"shape": [b, h, w], "dx_err": edx,
+                "max_abs_err": float((dx - pdx).abs().max()),
+                "ms": time_ms(bwd),
+                "device_ms": (dy1_dev + dx_dev if isinstance(dy1_dev, float)
+                              and isinstance(dx_dev, float)
+                              else "not measured"),
+                "singles_ms": time_ms(singles_bwd),
+                "plain_ms": time_ms(lambda: B.block1_bwd_plain(
+                    t1, t2, g1, g2, k1, k2)),
+                "library_ms": time_ms(lambda: torch.autograd.grad(
+                    (ly1, ly2), [xb], gb, retain_graph=True)),
+                **dict(zip(("bound_ms", "bound_by"),
+                           bound_ms(flops, bwd_bytes, rates, "bf16")))},
+    }
+    emit({"phase": "kernel", "name": "block1_batch", **out})
+    return out
+
+
 def _sinkhorn_rows(seed, n, m, c, distance):
     """x (n, c) and y (m, c) for a Sinkhorn check. Cosine: y_j = a_j
     x_pi(j) + sqrt(1 - a_j^2) e_j with a_j uniform in [-1, 1], so matched
@@ -867,6 +979,11 @@ def phase_kernels(rates):
     check_block1(512, 398, 13, rates)
     check_block1(48, 64, 15, rates)
     check_block1(5, 7, 16, rates)  # smaller than one of K3a's tiles
+    # the pair axis: the batch phase's first and last content scales, and
+    # a batch of images each smaller than one tile
+    b1_batch = {"b8_48x64": check_block1_batch(8, 48, 64, 33, rates),
+                "b8_384x512": check_block1_batch(8, 384, 512, 35, rates)}
+    check_block1_batch(3, 5, 7, 37, rates)
     # the --sinkhorn path above the memory gate: N = M = 32769 for the
     # feature term (C = 2179) and the YUV term (C = 3); a ragged shape
     lse_main = check_lse(32769, 32769, 2179, "cosine", 17, rates, reps=3,
@@ -888,6 +1005,7 @@ def phase_kernels(rates):
     torch.cuda.empty_cache()
     return {"remd_mins": (remd_main, remd_yuv), "selfsim": ss_main,
             "selfsim_32769": ss_big, "block1": b1_main,
+            "block1_batch": b1_batch,
             "sinkhorn_lse": (lse_main, lse_yuv)}
 
 
@@ -1330,6 +1448,277 @@ def phase_masked(vgg_params):
     return launches
 
 
+def _run_batch_counted(contents, styles, cfg, **kw):
+    """One batched stylization through strotss_torch.parallel.stylize_batch
+    (weights resolved as a user's run resolves them), launch counts set to
+    0 just before and read just after. Returns (images, info, launches,
+    summary)."""
+    import torch
+
+    from strotss_torch.parallel import stylize_batch
+
+    counted = _counted()
+    for fn in counted.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    imgs, info = stylize_batch(contents, styles, cfg, device="cuda", **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counted.items()}
+    summary = {"contents": list(contents.shape),
+               "styles": list(styles.shape), "output": list(imgs.shape),
+               "seconds": seconds, "stylize_seconds": info["seconds"],
+               "scales": [{"scale": sc["scale"], "seconds": sc["seconds"],
+                           "alpha": sc["alpha"],
+                           "first_loss": sc["curve"][0, :, 0].tolist(),
+                           "last_loss": sc["curve"][-1, :, 0].tolist()}
+                          for sc in info["scales"]],
+               "launches": launches,
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    return imgs, info, launches, summary
+
+
+def _check_batch_curves(name, info, falls):
+    for sc in info["scales"]:
+        curve = sc["curve"]  # (n, B, 3)
+        check(bool(np.all(np.isfinite(curve))),
+              f"{name}: non-finite loss at scale {sc['scale']}")
+        if falls:
+            fell = curve[-1, :, 0] < curve[0, :, 0]
+            check(bool(np.all(fell)), f"{name}: scale {sc['scale']} loss "
+                  f"did not fall for pairs {np.flatnonzero(~fell).tolist()}")
+
+
+def _batch_step_check(vgg_params, contents, styles, alphas, seeds, steps=10):
+    """The 64 px scale of the batch, ``steps`` steps: the batched step
+    (``programs.batch_steps``, one VGG pass for all pairs) against each
+    pair's single step from the same pyramid and the same coordinates,
+    and the run goes on with the batched update. Per pair (loss, loss_c,
+    loss_s) to rtol 1e-3, the slice phase's rule: cuDNN picks other
+    algorithms for blocks 2-5 on a batch than on one image, and
+    trajectories are chaotic, so free-running curves are never compared.
+    Returns the largest relative error of each term."""
+    import dataclasses
+
+    import torch
+
+    import strotss_torch
+    from strotss_torch import programs, solve
+    from strotss_torch.models.vgg import VGG
+    from strotss_torch.ops.image import fold_laplacian_pyramid
+    from strotss_torch.ops.sampling import strided_grid_coords
+    from strotss_torch.parallel import batch as PB
+
+    b = len(seeds)
+    cfg = strotss_torch.StrotssConfig(levels=1, max_iter=steps)
+    spec = programs.spec_from_config(cfg, "cuda", batched=True)
+    programs.set_precision(spec)
+    c = torch.tensor(contents, device="cuda")
+    s = torch.tensor(styles, device="cuda")
+    mode, chw, shw = solve.scale_mode_shapes(cfg, c.shape, s.shape, 0, 64)
+    vgg = VGG({k: {n: t.cuda() for n, t in p.items()}
+               for k, p in vgg_params.items()}, taps=spec.taps,
+              compute_dtype=spec.compute_dtype, block1_impl=spec.block1_impl)
+    gens = [solve.scale_generators(sd, 0, "cuda") for sd in seeds]
+    pyramid, content_feats, targets, moments, _ = PB.prepare_scale_batch(
+        spec, mode, chw, shw, cfg.pyramid_levels, vgg, c, s, c,
+        [g[0] for g in gens], 0, [[0]] * b)
+    opt = programs.RMSprop(pyramid, cfg.lr)
+    alpha = [dataclasses.replace(cfg, alpha=a).initial_alpha()
+             for a in alphas]
+    pairs = [programs.PairTerms(targets[i], moments[i], alpha[i])
+             for i in range(b)]
+    errs = np.zeros(3)
+    for _ in range(steps):
+        coords = [strided_grid_coords(g[1], chw, cfg.sample_size,
+                                      "cuda")[None] for g in gens]
+        with torch.no_grad():
+            single = []
+            for i in range(b):
+                pred = programs.extract_hypercolumn(
+                    vgg, fold_laplacian_pyramid([p[i:i + 1]
+                                                 for p in pyramid]))
+                single.append(torch.stack(programs.step_losses(
+                    spec, [f[i:i + 1] for f in content_feats], pred,
+                    targets[i], moments[i], alpha[i], coords[i])))
+            single = torch.stack(single).cpu().numpy()
+        rows = programs.batch_steps(spec, 1, vgg, content_feats, pairs,
+                                    pyramid, opt,
+                                    lambda i, t: coords[i])[0].cpu().numpy()
+        errs = np.maximum(errs, (np.abs(rows - single)
+                                 / np.abs(single)).max(axis=0))
+    return errs.tolist()
+
+
+def phase_batch(main_info):
+    """BASELINE config 4, batched stylization, at full width: 8 pairs
+    (numpy-made contents 480x640 and styles 720x560, one shape bucket) of
+    ``StrotssConfig(max_iter=50)`` (VGG16, 9 taps, 2179 channels, 1024
+    samples, 4 scales to 512 px, bf16 policy; the depth cut from 4 x 100
+    steps, which took 82 s and brought the script past 8 minutes) through
+    ``strotss_torch.parallel.stylize_batch``, alphas {0.5, 1, 2, 4} twice
+    and 8 distinct pair seeds. A step runs K3a and K3b once for all pairs
+    and K1 twice, K2a and K2b once a pair. Then the batched step against
+    each pair's single step from the same state at 64 px, and a masked
+    batch of 2 pairs with one padded region."""
+    import tempfile
+
+    import torch
+
+    import strotss_torch
+    from strotss_torch.models.weights import random_params
+    from strotss_torch.ops.masks import load_mask
+
+    b = 8
+    contents = np.concatenate([_smooth_image(480, 640, 40 + i)
+                               for i in range(b)])
+    styles = np.concatenate([_smooth_image(720, 560, 60 + i)
+                             for i in range(b)])
+    alphas = [0.5, 1.0, 2.0, 4.0] * 2
+    seeds = [1001 + 7 * i for i in range(b)]
+    cfg = strotss_torch.StrotssConfig(max_iter=50)
+    imgs, info, launches, summary = _run_batch_counted(
+        contents, styles, cfg, alphas=alphas, pair_seeds=seeds)
+    steps = cfg.levels * cfg.max_iter
+    main_step = main_info["seconds"] / (len(main_info["scales"])
+                                        * main_info["scales"][0]["curve"]
+                                        .shape[0])
+    per_pair_step = summary["seconds"] / (steps * b)
+    emit({"phase": "batch", "config": "BASELINE config 4 at full width: 8 "
+          "pairs, StrotssConfig(max_iter=50), alphas 0.5/1/2/4 twice, 8 "
+          "pair seeds", "steps": steps, "pairs": b,
+          "seconds_per_step": summary["seconds"] / steps,
+          "seconds_per_pair_step": per_pair_step,
+          "main_seconds_per_step": main_step,
+          "pair_step_over_main_step": per_pair_step / main_step,
+          **summary})
+    print(f"batch: {summary['seconds']:.2f} s wall for {b} pairs x {steps} "
+          f"steps, {per_pair_step:.4f} s per pair-step against "
+          f"{main_step:.4f} s per step in the main phase, peak "
+          f"{summary['peak_mem_gib']:.2f} GiB", flush=True)
+    _check_batch_curves("batch", info, falls=True)
+    check(imgs.dtype == torch.uint8 and tuple(imgs.shape) == (b, 384, 512, 3),
+          f"batch: output {imgs.dtype} {tuple(imgs.shape)}")
+    check(info["scales"][0]["alpha"] == [16.0 * a for a in alphas],
+          f"batch: alphas {info['scales'][0]['alpha']}")
+    want = {"remd_mins": 2 * b * steps, "selfsim_fwd": b * steps,
+            "selfsim_bwd": b * steps, "block1_fwd": steps + 2 * cfg.levels,
+            "block1_bwd": steps, "sinkhorn_lse": 0, "sinkhorn_prep": 0}
+    check(launches == want, f"batch: launches {launches}, want {want}")
+    del imgs, info
+    torch.cuda.empty_cache()
+
+    vgg_params = random_params("16", seed=0)
+    errs = _batch_step_check(vgg_params, contents, styles, alphas, seeds)
+    emit({"phase": "batch", "check": "10 steps at 64 px, the batched step "
+          "against each pair's single step from the same state",
+          "loss_rel_err": errs[0], "loss_c_rel_err": errs[1],
+          "loss_s_rel_err": errs[2]})
+    check(max(errs) <= 1e-3, f"batch: batched against single steps {errs}")
+
+    # masked x batched: pair 0 two regions, pair 1 one region padded to two
+    with tempfile.TemporaryDirectory() as tmp:
+        cm, sm = load_mask(*_mask_pngs(tmp, (480, 640), (720, 560)))
+    cms = np.zeros((2, 2, 480, 640, 1), np.float32)
+    sms = np.zeros((2, 2, 720, 560, 1), np.float32)
+    cms[0], sms[0] = cm.numpy(), sm.numpy()
+    cms[1, 0], sms[1, 0] = 1.0, 1.0
+    valid = np.array([[1, 1], [1, 0]], np.float32)
+    mcfg = strotss_torch.StrotssConfig(max_iter=10)
+    imgs, info, mlaunches, msummary = _run_batch_counted(
+        contents[:2], styles[:2], mcfg, content_masks=cms, style_masks=sms,
+        region_valid=valid, pair_seeds=seeds[:2])
+    msteps = mcfg.levels * mcfg.max_iter
+    emit({"phase": "batch", "config": "masked x batched: 2 pairs, pair 0 "
+          "with 2 regions, pair 1 with 1 region padded to 2, 4 scales x 10 "
+          "steps", **msummary})
+    _check_batch_curves("batch masked", info, falls=False)
+    check(tuple(imgs.shape) == (2, 384, 512, 3),
+          f"batch masked: output {tuple(imgs.shape)}")
+    mwant = {"remd_mins": 2 * 3 * msteps, "selfsim_fwd": 3 * msteps,
+             "selfsim_bwd": 3 * msteps,
+             "block1_fwd": msteps + 2 * mcfg.levels, "block1_bwd": msteps,
+             "sinkhorn_lse": 0, "sinkhorn_prep": 0}
+    check(mlaunches == mwant,
+          f"batch masked: launches {mlaunches}, want {mwant}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serve():
+    """``python -m strotss_torch.serve`` as a user runs it, in a process of
+    its own: ``--batch 4 --max_iter 20 --warmup 480x640:720x560`` on 6
+    jobs: 4 of one shape bucket with their own seeds and alphas (one batch
+    of 4), one whose content file is missing, and one warm job whose init
+    is job 1's output (run singly after the batch). Every stdout line must
+    parse as JSON; the 5 good jobs must say ``"ok": true`` (the serving
+    loop turns any failure into a job's error and exits 0, so the exit
+    code alone proves nothing) and the bad one ``"ok": false``."""
+    import os
+    import tempfile
+
+    from PIL import Image
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {}
+        for name, img in (("c", _smooth_image(480, 640, 81)),
+                          ("s", _smooth_image(720, 560, 82))):
+            paths[name] = os.path.join(tmp, f"{name}.png")
+            Image.fromarray((img[0] * 255).astype(np.uint8)).save(
+                paths[name])
+        outs = [os.path.join(tmp, f"out{i}.png") for i in range(6)]
+        jobs = [{"content": paths["c"], "style": paths["s"],
+                 "output": outs[i], "seed": 11 + i, "alpha": a}
+                for i, a in enumerate((0.5, 1.0, 2.0, 4.0))]
+        jobs.append({"content": os.path.join(tmp, "missing.png"),
+                     "style": paths["s"], "output": outs[4]})
+        jobs.append({"content": paths["c"], "style": paths["s"],
+                     "output": outs[5], "init": outs[1]})
+        jp = os.path.join(tmp, "jobs.jsonl")
+        with open(jp, "w") as f:
+            f.writelines(json.dumps(j) + "\n" for j in jobs)
+        cmd = [sys.executable, "-m", "strotss_torch.serve", "--jobs", jp,
+               "--batch", "4", "--max_iter", "20",
+               "--warmup", "480x640:720x560"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                              timeout=600,
+                              env=dict(os.environ, PYTHONPATH=root))
+        seconds = time.perf_counter() - t0
+        tail = proc.stderr[-2000:]
+        check(proc.returncode == 0,
+              f"serve: exit {proc.returncode}; stderr ends: {tail}")
+        lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+        try:
+            results = [json.loads(ln) for ln in lines]
+        except ValueError:
+            raise PhaseError(f"serve: stdout is not pure JSONL: {lines}")
+        shapes = [list(np.asarray(Image.open(o)).shape)
+                  if os.path.exists(o) else None for o in outs]
+    emit({"phase": "serve", "command": " ".join(cmd[1:]),
+          "seconds": seconds, "results": results, "output_shapes": shapes,
+          "job_seconds": [r.get("seconds") for r in results]})
+    by_out = {r.get("output"): r for r in results}
+    check(len(results) == 6, f"serve: {len(results)} result lines, want 6")
+    good = [by_out.get(o, {}) for o in outs[:4] + outs[5:]]
+    check(all(r.get("ok") is True for r in good),
+          f"serve: good jobs {good}")
+    check(all(by_out[o].get("batched") == 4 for o in outs[:4]),
+          "serve: the 4 same-shape jobs did not run as one batch of 4")
+    check("batched" not in by_out[outs[5]], "serve: the warm job batched")
+    check(by_out.get(outs[4], {}).get("ok") is False
+          and "FileNotFoundError" in by_out[outs[4]].get("error", ""),
+          f"serve: the bad job {by_out.get(outs[4])}")
+    check(all(sh == [384, 512, 3] for i, sh in enumerate(shapes) if i != 4),
+          f"serve: output shapes {shapes}, want 384x512 (the content's "
+          "aspect)")
+    per_job = [r["seconds"] for r in good]
+    print(f"serve: {seconds:.2f} s wall for the process (warm-up "
+          f"included); seconds per job {per_job}", flush=True)
+
+
 def phase_parity():
     """Seed 0 of both whole-run parity protocols of
     ``tools/parity_torch.py`` (default: 600 steps; masked: 240) in
@@ -1744,11 +2133,14 @@ def _with_yuv(main, yuv):
     return entry
 
 
-def kernels_line(meas, launches, masked, features):
+def kernels_line(meas, launches, masked, features, batched):
     """``launches``: the main path's counts (K4's from the sinkhorn
     phase's run (b)); ``masked``: the masked phase's, as
     ``launches_masked``; ``features``: the features phase's blended run's,
-    as ``launches_blended``."""
+    as ``launches_blended``; ``batched``: the batch phase's 8-pair run's,
+    as ``launches_batched``. The block1 rows carry the pair axis's times
+    (B = 8 images at the batch's 64 px and 512 px content shapes: one
+    launch, and B one-image launches as ``singles_ms``)."""
     ss_big = meas["selfsim_32769"]
     rows = [("remd_mins", _with_yuv(*meas["remd_mins"]))]
     for name in ("fwd", "bwd"):
@@ -1759,8 +2151,11 @@ def kernels_line(meas, launches, masked, features):
             row["fwd_bwd"] = meas["selfsim"]["fwd_bwd"]
             row["n_32769"]["fwd_bwd"] = ss_big["fwd_bwd"]
         rows.append((f"selfsim_{name}", row))
-    rows.append(("block1_fwd", meas["block1"]["fwd"]))
-    rows.append(("block1_bwd", meas["block1"]["bwd"]))
+    for d in ("fwd", "bwd"):
+        rows.append((f"block1_{d}", dict(meas["block1"][d], batched={
+            case: {k: m[d][k] for k in _TIMES + ("singles_ms", "library_ms",
+                                                  "shape")}
+            for case, m in meas["block1_batch"].items()})))
     rows.append(("sinkhorn_lse", dict(_with_yuv(*meas["sinkhorn_lse"]),
                                       prep_launches=launches[
                                           "sinkhorn_prep"])))
@@ -1771,12 +2166,13 @@ def kernels_line(meas, launches, masked, features):
             "replaces": _REPLACES[name], "launches": launches[name],
             "launches_masked": masked[name],
             "launches_blended": features[name],
+            "launches_batched": batched[name],
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
             "device_ms": m["device_ms"],
             **{k: v for k, v in m.items() if k in (
-                "yuv_both_c3", "n_32769", "fwd_bwd") + _K1_FIELDS
+                "yuv_both_c3", "n_32769", "fwd_bwd", "batched") + _K1_FIELDS
                + _K2_FIELDS + _K4_FIELDS[1:]},
         })
     return {"kernels": out}
@@ -1810,6 +2206,8 @@ def main() -> int:
         phase_slice(vgg_params)
         launches, main_info = phase_main()
         masked = phase_masked(vgg_params)
+        batched = phase_batch(main_info)
+        phase_serve()
         features = phase_features(main_info)
         phase_profile(vgg_params)
         cosine_pass_ms = meas["sinkhorn_lse"][0]["ms"]
@@ -1820,8 +2218,8 @@ def main() -> int:
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    print(json.dumps(kernels_line(meas, launches, masked, features)),
-          flush=True)
+    print(json.dumps(kernels_line(meas, launches, masked, features,
+                                  batched)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

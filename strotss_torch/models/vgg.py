@@ -16,9 +16,10 @@ float32 ``F.conv2d`` calls; ``'pallas'`` runs it fused through
 tensor, its plain version on the CPU), with bf16 operands and float32
 sums, the rounding of the JAX package's DEFAULT-precision block1;
 ``'plain'`` takes that fused function's plain version on any device (to
-hold the kernel to it on the card). The fused route is taken only under
-the bf16 policy, for one image, and when a tap lies past
-``block1_conv1``; otherwise block1 runs as ``'xla'``.
+hold the kernel to it on the card). The fused route is taken under the
+bf16 policy when a tap lies past ``block1_conv1``, for any batch: B
+images go through one launch of K3a (and of K3b in the backward);
+otherwise block1 runs as ``'xla'``.
 """
 
 from __future__ import annotations
@@ -117,21 +118,20 @@ def vgg_apply(
     h = preprocess(x.float(), preprocess_mode).permute(0, 3, 1, 2)
     outs: Dict[str, torch.Tensor] = {}
     idx = 0
-    fuse_b1 = (block1_impl != "xla" and mixed and x.shape[0] == 1
-               and deepest >= 1)
+    fuse_b1 = block1_impl != "xla" and mixed and deepest >= 1
     for b, n_convs in enumerate(_BLOCK_CONVS[str(vgg_type)]):
         dt = torch.float32 if (mixed and b == 0) else dtype
         h = h.to(dt)
         if b == 0 and fuse_b1:
             p1, p2 = params["block1_conv1"], params["block1_conv2"]
             t1, t2 = _block1.block1(
-                h[0].permute(1, 2, 0), p1["kernel"], p1["bias"],
+                h.permute(0, 2, 3, 1), p1["kernel"], p1["bias"],
                 p2["kernel"], p2["bias"],
                 impl="auto" if block1_impl == "pallas" else "plain")
-            outs["block1_conv1"], outs["block1_conv2"] = t1[None], t2[None]
+            outs["block1_conv1"], outs["block1_conv2"] = t1, t2
             if deepest == 1:
                 return [outs[t] for t in taps]
-            h = F.max_pool2d(t2.permute(2, 0, 1)[None], kernel_size=2,
+            h = F.max_pool2d(t2.permute(0, 3, 1, 2), kernel_size=2,
                              stride=2)
             idx = 2
             continue

@@ -18,6 +18,11 @@ where r rounds to ``mul_dtype`` (bf16 in the shipped policy) at the points
 where the TPU kernel rounds, and every sum is float32. The ReLU mask is
 strict, so the gradient at exactly 0 is 0.
 
+Every function here also takes a leading image axis: x (B, H, W, 3), the
+taps and their cotangents (B, H, W, 64), dx (B, H, W, 3). On the card one
+launch a direction serves all B images (the kernels walk the tiles of all
+of them), and each image's result is bit for bit a one-image launch's.
+
 ``block1_fwd`` and ``block1_bwd`` are the wrappers: on CUDA tensors they
 launch the kernels of ``csrc/block1.cu`` (whose header states their bound
 and design) and count the launches; on CPU tensors they compute the same
@@ -56,35 +61,46 @@ def _r(t: torch.Tensor, mul_dtype: torch.dtype) -> torch.Tensor:
 
 
 def _nchw(t: torch.Tensor) -> torch.Tensor:
-    return t.permute(2, 0, 1)[None]
+    return t.permute(0, 3, 1, 2).contiguous()
 
 
-def _hwc(t: torch.Tensor) -> torch.Tensor:
-    return t[0].permute(1, 2, 0).contiguous()
+def _nhwc(t: torch.Tensor) -> torch.Tensor:
+    return t.permute(0, 2, 3, 1).contiguous()
+
+
+def _batched(t: torch.Tensor):
+    """(t with a leading image axis, whether one was added)."""
+    return (t[None], True) if t.dim() == 3 else (t, False)
 
 
 def block1_plain(x, k1, b1, k2, b2, mul_dtype=torch.bfloat16):
-    """(tap1, tap2), both (H, W, 64), from x (H, W, 3); sums in x's dtype
-    (float32; float64 gives the exactly summed reference)."""
+    """(tap1, tap2), both (B, H, W, 64), from x (B, H, W, 3), or (H, W, 64)
+    from (H, W, 3); sums in x's dtype (float32; float64 gives the exactly
+    summed reference)."""
+    x, one = _batched(x)
     y1 = torch.relu(F.conv2d(_nchw(_r(x, mul_dtype)), _r(k1, mul_dtype),
                              padding=1) + b1[:, None, None])
     y2 = torch.relu(F.conv2d(_r(y1, mul_dtype), _r(k2, mul_dtype),
                              padding=1) + b2[:, None, None])
-    return _hwc(y1), _hwc(y2)
+    tap1, tap2 = _nhwc(y1), _nhwc(y2)
+    return (tap1[0], tap2[0]) if one else (tap1, tap2)
 
 
 def block1_bwd_plain(tap1, tap2, g1, g2, k1, k2, mul_dtype=torch.bfloat16):
-    """dx (H, W, 3) for the cotangents g1, g2 of the two taps; sums in
-    the taps' dtype."""
-    h, w, _ = tap1.shape
+    """dx (B, H, W, 3) for the cotangents g1, g2 of the two (B, H, W, 64)
+    taps, or (H, W, 3) without the image axis; sums in the taps' dtype."""
+    (tap1, one), (tap2, _), (g1, _), (g2, _) = map(_batched,
+                                                   (tap1, tap2, g1, g2))
+    b, h, w, _ = tap1.shape
     m1 = (tap1 > 0).to(tap1.dtype)
     dz2 = _r(g2 * (tap2 > 0), mul_dtype)
     g1m = _r(g1 * m1, mul_dtype)
-    acc = conv2d_input((1, 64, h, w), _r(k2, mul_dtype), _nchw(dz2),
+    acc = conv2d_input((b, 64, h, w), _r(k2, mul_dtype), _nchw(dz2),
                        padding=1)
-    dy1 = _r(_hwc(acc) * m1 + g1m, mul_dtype)
-    return _hwc(conv2d_input((1, 3, h, w), _r(k1, mul_dtype), _nchw(dy1),
-                             padding=1))
+    dy1 = _r(_nhwc(acc) * m1 + g1m, mul_dtype)
+    dx = _nhwc(conv2d_input((b, 3, h, w), _r(k1, mul_dtype), _nchw(dy1),
+                            padding=1))
+    return dx[0] if one else dx
 
 
 def _check_bf16(mul_dtype) -> None:
@@ -161,22 +177,28 @@ def cached_bwd_layouts(k1, k2):
 
 
 def block1_fwd(x, k1, b1, k2, b2, mul_dtype=torch.bfloat16):
-    """(tap1, tap2): kernel K3a on CUDA tensors."""
+    """(tap1, tap2): kernel K3a on CUDA tensors, one launch for all the
+    images of x (B, H, W, 3) or for x (H, W, 3)."""
     if not x.is_cuda:
         return block1_plain(x, k1, b1, k2, b2, mul_dtype)
     _check_bf16(mul_dtype)
-    h, w, _ = x.shape
-    check_cuda_f32("x", x, (h, w, 3))
+    *lead, h, w, _ = x.shape
+    if len(lead) > 1:
+        raise ValueError(f"x must be (H, W, 3) or (B, H, W, 3), got "
+                         f"{tuple(x.shape)}")
+    check_cuda_f32("x", x, (*lead, h, w, 3))
     check_cuda_f32("k1", k1, (64, 3, 3, 3))
     check_cuda_f32("k2", k2, (64, 64, 3, 3))
     k1l, b1l, k2l, b2l = cached_fwd_layouts(k1, b1, k2, b2)
     check_cuda_f32("b1", b1l, (64,))
     check_cuda_f32("b2", b2l, (64,))
-    tap1 = torch.empty((h, w, 64), dtype=torch.float32, device=x.device)
+    tap1 = torch.empty((*lead, h, w, 64), dtype=torch.float32,
+                       device=x.device)
     tap2 = torch.empty_like(tap1)
     launch_on(x.device, "block1_fwd", x.data_ptr(), k1l.data_ptr(),
               b1l.data_ptr(), k2l.data_ptr(), b2l.data_ptr(), h, w,
-              tap1.data_ptr(), tap2.data_ptr(), _stream(x))
+              lead[0] if lead else 1, tap1.data_ptr(), tap2.data_ptr(),
+              _stream(x))
     block1_fwd.launches += 1
     return tap1, tap2
 
@@ -191,21 +213,28 @@ def fwd_setups() -> int:
 
 
 def block1_bwd(tap1, tap2, g1, g2, k1, k2, mul_dtype=torch.bfloat16):
-    """dx: kernel K3b (its two launches count as one) on CUDA tensors."""
+    """dx: kernel K3b (its two launches count as one) on CUDA tensors, one
+    call for all the images of (B, H, W, 64) taps or for (H, W, 64)."""
     if not tap1.is_cuda:
         return block1_bwd_plain(tap1, tap2, g1, g2, k1, k2, mul_dtype)
     _check_bf16(mul_dtype)
-    h, w, _ = tap1.shape
+    *lead, h, w, _ = tap1.shape
+    if len(lead) > 1:
+        raise ValueError(f"tap1 must be (H, W, 64) or (B, H, W, 64), got "
+                         f"{tuple(tap1.shape)}")
     for name, t in (("tap1", tap1), ("tap2", tap2), ("g1", g1), ("g2", g2)):
-        check_cuda_f32(name, t, (h, w, 64))
+        check_cuda_f32(name, t, (*lead, h, w, 64))
     check_cuda_f32("k1", k1, (64, 3, 3, 3))
     check_cuda_f32("k2", k2, (64, 64, 3, 3))
     k2r, k1r = cached_bwd_layouts(k1, k2)
-    dy1 = torch.empty((h, w, 64), dtype=torch.bfloat16, device=tap1.device)
-    dx = torch.empty((h, w, 3), dtype=torch.float32, device=tap1.device)
+    dy1 = torch.empty((*lead, h, w, 64), dtype=torch.bfloat16,
+                      device=tap1.device)
+    dx = torch.empty((*lead, h, w, 3), dtype=torch.float32,
+                     device=tap1.device)
     launch_on(tap1.device, "block1_bwd", tap1.data_ptr(), tap2.data_ptr(),
               g1.data_ptr(), g2.data_ptr(), k2r.data_ptr(), k1r.data_ptr(),
-              h, w, dy1.data_ptr(), dx.data_ptr(), _stream(tap1))
+              h, w, lead[0] if lead else 1, dy1.data_ptr(), dx.data_ptr(),
+              _stream(tap1))
     block1_bwd.launches += 1
     return dx
 
@@ -246,7 +275,8 @@ class Block1(torch.autograd.Function):
 
 
 def block1(x, k1, b1, k2, b2, mul_dtype=torch.bfloat16, impl: str = "auto"):
-    """Differentiable fused block1 of x (H, W, 3): (tap1, tap2).
+    """Differentiable fused block1 of x (B, H, W, 3) or (H, W, 3): (tap1,
+    tap2) with the same leading axes.
 
     ``impl``: ``'kernel'`` (K3a/K3b), ``'plain'`` (the plain versions) or
     ``'auto'`` (the kernels on CUDA tensors). Weights are OIHW.

@@ -41,8 +41,8 @@ _SIGNATURES = {
     "selfsim_fwd": ("selfsim", [_P] * 4 + [_I, _I] + [_P] * 7 + [_I] * 2
                     + [_P]),
     "selfsim_bwd": ("selfsim", [_P] * 7 + [_I] * 3 + [_P] * 2 + [_P]),
-    "block1_fwd": ("block1", [_P] * 5 + [_I, _I] + [_P] * 2 + [_P]),
-    "block1_bwd": ("block1", [_P] * 6 + [_I, _I] + [_P] * 2 + [_P]),
+    "block1_fwd": ("block1", [_P] * 5 + [_I] * 3 + [_P] * 2 + [_P]),
+    "block1_bwd": ("block1", [_P] * 6 + [_I] * 3 + [_P] * 2 + [_P]),
     "sinkhorn_prep": ("sinkhorn", [_P, _I, _P, _I, _I, _P, _P, _I, _P, _P,
                                    _I, _P]),
     "sinkhorn_lse": ("sinkhorn", [_P, _P, _I, _P, _P, _I, _P] + [_I] * 4

@@ -10,9 +10,10 @@ statistics, a transport term on cosine distance and one with the 'both'
 distance on YUV: REMD, or Sinkhorn under ``use_sinkhorn``), takes the
 gradient back to the pyramid and applies RMSprop. Under region masks the
 losses are computed per region, each with its own coordinates and style
-targets, and averaged. PyTorch runs eagerly, so the JAX package's
-per-scale compiled programs become a Python loop over steps (and over
-regions).
+targets, and averaged. A batched step (:func:`batch_steps`) runs VGG once
+on B pairs' images and sums the pairs' losses. PyTorch runs eagerly, so
+the JAX package's per-scale compiled programs become a Python loop over
+steps (and over regions and pairs).
 """
 
 from __future__ import annotations
@@ -86,16 +87,16 @@ def _block1_route(cfg: StrotssConfig, device) -> str:
 
 
 def spec_from_config(cfg: StrotssConfig, device="cpu",
-                     masked: bool = False) -> StepSpec:
+                     masked: bool = False, batched: bool = False) -> StepSpec:
     """The step's static configuration for a run on ``device``.
 
-    A masked Sinkhorn run takes the materialized Sinkhorn with its
-    unrolled gradient at every size, as the JAX package's masked path does
-    (``strotss_tpu/programs.py:88``): crossing the memory gate would
-    change the gradient estimator and so the result. A Sinkhorn step runs
-    no REMD, so ``remd_impl`` carries that route; self-similarity, and
-    REMD on a masked run without Sinkhorn, keep their kernels, since any
-    route computes the same function.
+    A masked or batched Sinkhorn run takes the materialized Sinkhorn with
+    its unrolled gradient at every size, as the JAX package's masked and
+    batched paths do (``strotss_tpu/programs.py:88``): crossing the memory
+    gate would change the gradient estimator and so the result. A Sinkhorn
+    step runs no REMD, so ``remd_impl`` carries that route;
+    self-similarity, and REMD on such a run without Sinkhorn, keep their
+    kernels, since any route computes the same function.
     """
     impl = "auto" if cfg.use_pallas else "plain"
     return StepSpec(
@@ -107,7 +108,8 @@ def spec_from_config(cfg: StrotssConfig, device="cpu",
         use_sinkhorn=cfg.use_sinkhorn,
         sinkhorn_lambda=cfg.sinkhorn_lambda,
         sinkhorn_iters=cfg.sinkhorn_iters,
-        remd_impl="plain" if masked and cfg.use_sinkhorn else impl,
+        remd_impl=("plain" if (masked or batched) and cfg.use_sinkhorn
+                   else impl),
         selfsim_impl=impl,
         block1_impl=_block1_route(cfg, device),
         remat=cfg.remat,
@@ -257,27 +259,33 @@ def scale_seed(mode: str, chw, shw, levels: int, content, style, prev,
 
 
 def step_losses(spec: StepSpec, content_feats, pred, style_targets,
-                style_moments, alpha: float, coords: torch.Tensor):
+                style_moments, alpha: float, coords: torch.Tensor,
+                weights=None):
     """(loss, loss_c, loss_s) of one step at the given sample coords.
 
     One entry a region: (K, n, 2) ``coords``, (K, n, C) ``style_targets``
     and K ``style_moments`` (K = 1 without masks). ``loss_c`` and
     ``loss_s`` are the regions' means, and the loss
     sum_k (alpha lc_k + ls_k) / (K denom)
-    (``strotss_tpu/programs.py:663-675``).
+    (``strotss_tpu/programs.py:663-675``). ``weights``: K floats that
+    replace the 1/K of the mean (a batch's ``region_valid`` weights).
     """
     denom = 2.0 + alpha + 1.0 / max(alpha, 1.0)
     k = coords.shape[0]
     lc = ls = 0.0
-    for xy, target, tmom in zip(coords, style_targets, style_moments):
+    for r, (xy, target, tmom) in enumerate(zip(coords, style_targets,
+                                               style_moments)):
         c_feat, p_feat = sample_paired(xy, content_feats, pred)
-        lc = lc + content_loss(c_feat, p_feat, impl=spec.selfsim_impl) / k
-        ls = ls + style_loss(target, p_feat, alpha,
-                             use_sinkhorn=spec.use_sinkhorn,
-                             sinkhorn_lambda=spec.sinkhorn_lambda,
-                             sinkhorn_iters=spec.sinkhorn_iters,
-                             remd_impl=spec.remd_impl,
-                             target_moments=tmom) / k
+        lc_r = content_loss(c_feat, p_feat, impl=spec.selfsim_impl)
+        ls_r = style_loss(target, p_feat, alpha,
+                          use_sinkhorn=spec.use_sinkhorn,
+                          sinkhorn_lambda=spec.sinkhorn_lambda,
+                          sinkhorn_iters=spec.sinkhorn_iters,
+                          remd_impl=spec.remd_impl, target_moments=tmom)
+        if weights is None:
+            lc, ls = lc + lc_r / k, ls + ls_r / k
+        else:
+            lc, ls = lc + lc_r * weights[r], ls + ls_r * weights[r]
     return (alpha * lc + ls) / denom, lc, ls
 
 
@@ -307,4 +315,60 @@ def optimization_steps(spec: StepSpec, n_steps: int, vgg: VGG, content_feats,
         grads = torch.autograd.grad(loss, leaves)
         opt.step(grads)
         rows.append(torch.stack([loss, lc, ls]).detach())
+    return torch.stack(rows)
+
+
+class PairTerms(NamedTuple):
+    """What pair b of a batch brings to the batched step: its style
+    targets (K_b, n, C) and their moments, one entry a region it runs
+    (K_b = 1 without masks), its alpha, and its region weights (``None``:
+    the mean over its K_b regions, as :func:`step_losses` takes it)."""
+
+    targets: torch.Tensor
+    moments: list
+    alpha: float
+    weights: object = None
+
+
+def batch_steps(spec: StepSpec, n_steps: int, vgg: VGG, content_feats,
+                pairs: Sequence[PairTerms], pyramid, opt: RMSprop,
+                coords_fn: Callable[[int, int], torch.Tensor]):
+    """``n_steps`` (>= 1) of the batched step for B pairs: the (B, ...)
+    pyramid folds into B images, VGG runs once on all of them, and pair b
+    takes :func:`step_losses` at its own coordinates ``coords_fn(b, t)``
+    ((K_b, n, 2)), targets, moments, alpha and region weights.
+
+    The loss is the SUM over pairs, not their mean: pairs share no term,
+    so each pair's gradient is its single run's, and RMSprop (elementwise,
+    its eps inside the square root) then moves each pair exactly as its
+    single run would; a mean would scale the gradients by 1/B
+    (``strotss_tpu/parallel/batch.py:172-180``). A pair with no region to
+    run adds nothing and rows zeros. ``pyramid`` is updated in place; the
+    per-step (loss, loss_c, loss_s) rows come back as one (n_steps, B, 3)
+    tensor on the run's device, so the loop never waits for the card.
+    """
+    content = [f.unbind(0) for f in content_feats]
+    rows = []
+    for t in range(n_steps):
+        coords = [coords_fn(b, t) for b in range(len(pairs))]
+        leaves = [p.requires_grad_(True) for p in pyramid]
+        img = fold_laplacian_pyramid(leaves)
+        # unbind: one gradient buffer for all pairs in the backward pass
+        pred = [f.unbind(0) for f in extract_for_grad(spec, vgg, img)]
+        total, per = None, []
+        for b, pair in enumerate(pairs):
+            if coords[b].shape[0] == 0:
+                per.append(torch.zeros(3, device=img.device))
+                continue
+            loss, lc, ls = step_losses(
+                spec, [f[b] for f in content], [f[b] for f in pred],
+                pair.targets, pair.moments, pair.alpha, coords[b],
+                pair.weights)
+            total = loss if total is None else total + loss
+            per.append(torch.stack([loss, lc, ls]).detach())
+        del pred
+        grads = ([torch.zeros_like(p) for p in leaves] if total is None
+                 else torch.autograd.grad(total, leaves))
+        opt.step(grads)
+        rows.append(torch.stack(per))
     return torch.stack(rows)

@@ -3,8 +3,9 @@
 
 The state of the scale in progress is a flat mapping of named tensors:
 the Laplacian-pyramid leaves, the RMSprop slots and the scale's step
-generator state (``torch.Generator.get_state()``). With the scale index,
-the steps done and alpha it is saved after every chunk into one
+generator state (``torch.Generator.get_state()``; a batch saves one a
+pair). With the scale index, the steps done and alpha (a batch's per-pair
+list) it is saved after every chunk into one
 ``state.npz``, replaced atomically, which also holds the metadata; a
 ``state.json`` beside it mirrors that metadata for people. The metadata
 carries the run's *fingerprint* (the configuration fields and input
@@ -64,7 +65,7 @@ def check_fingerprint(meta: Dict[str, Any], fingerprint: Dict[str, Any],
 
 
 def save_state(directory: str, scale_index: int, done_steps: int,
-               alpha: float, state: Mapping[str, Any],
+               alpha, state: Mapping[str, Any],
                fingerprint: Optional[Dict[str, Any]] = None,
                extras: Optional[Mapping[str, Any]] = None) -> None:
     """Persist the state of the scale in progress, atomically.
@@ -72,7 +73,7 @@ def save_state(directory: str, scale_index: int, done_steps: int,
     ``extras``: named arrays saved beside the state (the chunk's float
     image and its uint8 image), returned by :func:`restore_extras`: a
     resume on a completed scale boundary hands them to the next scale as
-    they were."""
+    they were. ``alpha``: a float, or a batch's list of per-pair floats."""
     os.makedirs(directory, exist_ok=True)
     arrays = {f"leaf_{name}": _numpy(v) for name, v in state.items()}
     for name, v in (extras or {}).items():
@@ -80,7 +81,8 @@ def save_state(directory: str, scale_index: int, done_steps: int,
     meta = {
         "scale_index": int(scale_index),
         "done_steps": int(done_steps),
-        "alpha": float(alpha),
+        "alpha": ([float(a) for a in alpha]
+                  if isinstance(alpha, (list, tuple)) else float(alpha)),
         "n_leaves": len(state),
         "structure": structure_digest(state),
         "fingerprint": fingerprint,

@@ -14,7 +14,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from strotss_torch.ops.image import resize_max
+from strotss_torch.ops.image import resize_max, resize_max_hw
 from strotss_torch.utils.logging import logger
 
 
@@ -32,6 +32,22 @@ def load_image(path: str, max_size: Optional[int] = None) -> torch.Tensor:
         arr = np.asarray(im.convert("RGB"))
     img = torch.tensor(arr, dtype=torch.float32) / 255.0
     return resize_max(img, max_size)[None]
+
+
+def image_size(path: str, max_size: Optional[int] = None):
+    """(H, W) that :func:`load_image` would produce, from the header alone.
+
+    PIL's ``open`` decodes no pixels, so this is cheap enough to group
+    jobs by shape before loading them (``strotss_torch.serve``). The
+    arithmetic is ``resize_max_hw``'s, the rule ``load_image`` resizes by.
+    """
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"File not found: {path}")
+    from PIL import Image
+
+    with Image.open(path) as im:
+        w, h = im.size
+    return resize_max_hw(h, w, max_size)
 
 
 def write_image(image, path: str) -> None:

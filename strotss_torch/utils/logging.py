@@ -25,3 +25,22 @@ def make_logger(name: str = _NAME) -> logging.Logger:
         lg.addHandler(sh)
     lg.setLevel(logging.INFO)
     return lg
+
+
+def route_to_stderr() -> logging.Logger:
+    """Point the shared logger's stream handlers at stderr.
+
+    The serving loop's stdout is its JSONL results stream by default; one
+    INFO line (the weights loader, ``write_image``, the warm-up) in it
+    would break a consumer's parse. The CLI keeps the stdout handler.
+    """
+    lg = make_logger()
+    for h in lg.handlers:
+        if isinstance(h, logging.StreamHandler):
+            try:
+                h.setStream(sys.stderr)
+            except ValueError:
+                # setStream flushes the old stream first, which fails when
+                # that stream is already closed: swap without the flush
+                h.stream = sys.stderr
+    return lg

@@ -318,6 +318,35 @@ def test_block1_on_card(cuda_device, h, w):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w", [(3, 5, 7), (8, 48, 64), (2, 37, 53)])
+def test_block1_pair_axis_on_card(cuda_device, b, h, w):
+    """K3a and K3b on B images: one launch a direction, each image bit for
+    bit its one-image launch (the walk crosses images mid-block, and the
+    next tile's prefetch reads the next image), and the batch held to the
+    plain version at the limits above."""
+    torch.backends.cudnn.allow_tf32 = False
+    k1, b1, k2, b2 = _block1_weights(cuda_device)
+    x = _rand(h + b, (b, h, w, 3), cuda_device)
+    g1, g2 = (_rand(5 + b, (b, h, w, 64), cuda_device),
+              _rand(6 + b, (b, h, w, 64), cuda_device))
+    before = (block1.block1_fwd.launches, block1.block1_bwd.launches)
+    t1, t2 = block1.block1_fwd(x, k1, b1, k2, b2)
+    dx = block1.block1_bwd(t1, t2, g1, g2, k1, k2)
+    assert (block1.block1_fwd.launches,
+            block1.block1_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert t1.shape == (b, h, w, 64) and dx.shape == (b, h, w, 3)
+    for i in range(b):
+        o1, o2 = block1.block1_fwd(x[i], k1, b1, k2, b2)
+        assert torch.equal(t1[i], o1) and torch.equal(t2[i], o2)
+        assert torch.equal(dx[i], block1.block1_bwd(t1[i], t2[i], g1[i],
+                                                    g2[i], k1, k2))
+    p1, p2 = block1.block1_plain(x, k1, b1, k2, b2)
+    assert _err(t1, p1) <= 1e-5
+    assert _err(t2, p2) <= 1e-3
+    assert _err(dx, block1.block1_bwd_plain(t1, t2, g1, g2, k1, k2)) <= 1e-3
+
+
+@pytest.mark.cuda
 def test_block1_fwd_repeat_call_does_no_setup(cuda_device, monkeypatch):
     """A repeat call with the same weights builds no layout and sets no
     kernel attribute; an in-place edit of k2 is followed."""
@@ -618,3 +647,41 @@ def test_remat_launches_on_card(cuda_device):
         assert got["block1_bwd"] == 3
         assert np.all(np.isfinite(info["scales"][0]["curve"]))
     assert counts == [3 + 2, 2 * 3 + 2]
+
+
+@pytest.mark.cuda
+def test_batch_launches_on_card(cuda_device):
+    """3 pairs, 2 scales x 3 steps at full width: K1 twice, K2a and K2b
+    once a pair a step; K3a once a step for all pairs and once a scale for
+    the contents and once for the styles; K3b once a step. Each pair's
+    first step is its single run's."""
+    import dataclasses
+
+    from strotss_torch import StrotssConfig
+    from strotss_torch.parallel import stylize_batch
+    from strotss_torch.solve import stylize_single
+
+    rng = np.random.default_rng(1)
+    contents = rng.random((3, 48, 64, 3)).astype(np.float32)
+    styles = rng.random((3, 64, 56, 3)).astype(np.float32)
+    cfg = StrotssConfig(levels=2, max_iter=3)
+    before = _launches()
+    img, info = stylize_batch(contents, styles, cfg,
+                              vgg_params=random_params("16", 0),
+                              alphas=[0.5, 1.0, 4.0], pair_seeds=[1, 2, 3],
+                              device="cuda")
+    torch.cuda.synchronize()
+    got = {k: v - before[k] for k, v in _launches().items()}
+    assert got == {"remd_mins": 2 * 3 * 6, "selfsim_fwd": 3 * 6,
+                   "selfsim_bwd": 3 * 6, "block1_fwd": 6 + 2 * 2,
+                   "block1_bwd": 6}
+    assert img.shape == (3, 96, 128, 3) and img.dtype == torch.uint8
+    for b, (alpha, seed) in enumerate(zip([0.5, 1.0, 4.0], [1, 2, 3])):
+        _, one = stylize_single(
+            torch.tensor(contents[b:b + 1], device="cuda"),
+            torch.tensor(styles[b:b + 1], device="cuda"),
+            dataclasses.replace(cfg, alpha=alpha, seed=seed, levels=1,
+                                max_iter=1),
+            random_params("16", 0))
+        np.testing.assert_allclose(info["scales"][0]["curve"][0, b],
+                                   one["scales"][0]["curve"][0], rtol=1e-3)

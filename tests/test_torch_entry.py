@@ -169,7 +169,8 @@ def test_cli_runs_on_cpu(tmp_path):
 def test_no_jax_in_the_port_at_runtime():
     code = ("import sys, strotss_torch, strotss_torch.cli, "
             "strotss_torch.ops.kernels.remd, strotss_torch.ops.kernels."
-            "selfsim, strotss_torch.ops.kernels.sinkhorn, chip_smoke\n"
+            "selfsim, strotss_torch.ops.kernels.sinkhorn, "
+            "strotss_torch.parallel.batch, strotss_torch.serve, chip_smoke\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'optax', 'strotss_tpu')]\n"
             "print(bad)\n")
