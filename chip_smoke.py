@@ -26,7 +26,13 @@ width through ``strotss_torch.parallel.stylize_batch`` (BASELINE config
 holds 10 batched steps to each pair's single step from the same state,
 and runs a masked batch with a padded region; the serve phase runs
 ``python -m strotss_torch.serve`` on 6 jobs (a batch of 4, a bad job, a
-warm job). The kernel phase also holds K3a and K3b on a batch of images
+warm job). The multi phase starts ranks through
+``strotss_torch.parallel.launch``: two sharing the card over gloo hold
+the sample-sharded REMD (K1 on each rank's shard) bit for bit to one
+rank, run a full-width ``shard_samples`` stylization step by step against
+the unsharded step, and a batch over a 'data' mesh bit for bit against
+one rank on a world-size-1 NCCL mesh; serve runs with ``--data_devices
+1``. The kernel phase also holds K3a and K3b on a batch of images
 bit for bit to one-image launches. The features phase blends a second
 style with checkpoints, resumes from a checkpoint copied aside, refines
 the default run's result at ``start_level=3`` without and with
@@ -1554,9 +1560,10 @@ def _batch_step_check(vgg_params, contents, styles, alphas, seeds, steps=10):
 def phase_batch(main_info):
     """BASELINE config 4, batched stylization, at full width: 8 pairs
     (numpy-made contents 480x640 and styles 720x560, one shape bucket) of
-    ``StrotssConfig(max_iter=50)`` (VGG16, 9 taps, 2179 channels, 1024
+    ``StrotssConfig(max_iter=10)`` (VGG16, 9 taps, 2179 channels, 1024
     samples, 4 scales to 512 px, bf16 policy; the depth cut from 4 x 100
-    steps, which took 82 s and brought the script past 8 minutes) through
+    steps, which took 82 s, to 4 x 50 and then, to make room for the
+    multi phase within 8 minutes, to 4 x 10) through
     ``strotss_torch.parallel.stylize_batch``, alphas {0.5, 1, 2, 4} twice
     and 8 distinct pair seeds. A step runs K3a and K3b once for all pairs
     and K1 twice, K2a and K2b once a pair. Then the batched step against
@@ -1577,7 +1584,7 @@ def phase_batch(main_info):
                              for i in range(b)])
     alphas = [0.5, 1.0, 2.0, 4.0] * 2
     seeds = [1001 + 7 * i for i in range(b)]
-    cfg = strotss_torch.StrotssConfig(max_iter=50)
+    cfg = strotss_torch.StrotssConfig(max_iter=10)
     imgs, info, launches, summary = _run_batch_counted(
         contents, styles, cfg, alphas=alphas, pair_seeds=seeds)
     steps = cfg.levels * cfg.max_iter
@@ -1586,7 +1593,7 @@ def phase_batch(main_info):
                                         .shape[0])
     per_pair_step = summary["seconds"] / (steps * b)
     emit({"phase": "batch", "config": "BASELINE config 4 at full width: 8 "
-          "pairs, StrotssConfig(max_iter=50), alphas 0.5/1/2/4 twice, 8 "
+          "pairs, StrotssConfig(max_iter=10), alphas 0.5/1/2/4 twice, 8 "
           "pair seeds", "steps": steps, "pairs": b,
           "seconds_per_step": summary["seconds"] / steps,
           "seconds_per_pair_step": per_pair_step,
@@ -2112,6 +2119,456 @@ def phase_features(main_info, max_iter=200):
     return blended
 
 
+def _rank_collectives():
+    """(a) The collectives the port runs, on CUDA tensors, over this
+    run's backend: all_gather_into_tensor, all_reduce, broadcast. Returns
+    what failed (empty: all is well); nothing is staged through the CPU
+    here."""
+    import torch
+    import torch.distributed as dist
+
+    r, p = dist.get_rank(), dist.get_world_size()
+    bad = []
+    probes = (
+        ("all_gather_into_tensor",
+         lambda: dist.all_gather_into_tensor(
+             out[0], torch.full((3,), float(r), device="cuda")),
+         lambda: [float(k) for k in range(p) for _ in range(3)]),
+        ("all_reduce", lambda: dist.all_reduce(out[0]),
+         lambda: [p * (p + 1) / 2.0] * 4),
+        ("broadcast", lambda: dist.broadcast(out[0], 0),
+         lambda: [0.0] * 2))
+    starts = (torch.empty(3 * p, device="cuda"),
+              torch.full((4,), r + 1.0, device="cuda"),
+              torch.full((2,), float(r), device="cuda"))
+    for (name, run, want), start in zip(probes, starts):
+        out = [start]
+        try:
+            run()
+            torch.cuda.synchronize()
+            if out[0].tolist() != want():
+                bad.append(f"{name} gave {out[0].tolist()}, want {want()}")
+        except Exception as e:  # reported, and the phase fails on it
+            bad.append(f"{name}: {type(e).__name__}: {e}")
+    return bad
+
+
+def _rank_remd(cases):
+    """(b) Each rank runs K1 on its shard of y's rows. Per (n, m, c,
+    distance, seed): whether the gathered row minima and their argmins
+    and the column minima and argmins are the unsharded K1's bit for bit;
+    the loss of ``transport.remd_over_group`` against the unsharded
+    ``relaxed_emd`` (relative); its x gradient, after the all-reduce,
+    against the unsharded one (over max|g|); and the K1 launches of the
+    sharded loss on this rank."""
+    import torch
+    import torch.distributed as dist
+
+    from strotss_torch.ops.kernels import remd
+    from strotss_torch.ops.losses import relaxed_emd
+    from strotss_torch.parallel.transport import remd_over_group
+
+    r, p = dist.get_rank(), dist.get_world_size()
+    out = []
+    for n, m, c, distance, seed in cases:
+        x = _inputs(seed, (n, c), positive=(c == 3))
+        y = _inputs(seed + 1, (m, c), positive=(c == 3))
+        full = remd.mins(x, y, distance)
+        lo = sum(len(t) for t in torch.tensor_split(y, p)[:r])
+        local = remd.mins(x, torch.tensor_split(y, p)[r].contiguous(),
+                          distance)
+
+        def gathered(t):
+            g = t.new_empty((p * t.numel(),))
+            dist.all_gather_into_tensor(g, t.contiguous())
+            return g.view(p, -1)
+
+        rows = gathered(local[0])
+        row_min, win = torch.min(rows, dim=0)
+        row_arg = (gathered(local[2] + lo).gather(0, win[None])[0])
+        col_min = gathered(local[1]).view(-1)
+        col_arg = gathered(local[3]).view(-1)
+        same = {"rowmin": torch.equal(row_min, full[0]),
+                "rowarg": torch.equal(row_arg, full[2]),
+                "colmin": torch.equal(col_min, full[1]),
+                "colarg": torch.equal(col_arg, full[3])}
+        xs = x.clone().requires_grad_(True)
+        remd.mins.launches = 0
+        loss = remd_over_group(xs, y, dist.group.WORLD, distance)
+        launches = remd.mins.launches
+        g, = torch.autograd.grad(loss, xs)
+        xu = x.clone().requires_grad_(True)
+        ref = relaxed_emd(xu, y, distance)
+        gu, = torch.autograd.grad(ref, xu)
+        out.append({"shape": [n, m, c], "distance": distance,
+                    "shard_rows": [lo, lo + local[1].numel()],
+                    "bitwise": same,
+                    "loss_rel_err": abs(loss.item() - ref.item())
+                    / abs(ref.item()),
+                    "grad_err": _grad_err(g, gu), "k1_launches": launches})
+    return out
+
+
+def _rank_shard_samples(content, style, steps):
+    """(c) ``stylize(mesh=...)`` under ``shard_samples`` at full width on a
+    'sample' mesh of every rank: every step's (loss, loss_c, loss_s) and
+    the loss's gradient with respect to the VGG taps (through the
+    transport's backward, all-reduce included) held to the unsharded
+    step's from the same state (the same prediction and coordinates; those
+    comparison launches are taken back off the counts), a digest of the
+    pyramid after each scale, and this rank's launches of each kernel.
+    Then the same run again, timed alone."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    import strotss_torch
+    from strotss_torch import programs, solve
+    from strotss_torch.parallel import make_mesh
+
+    mesh = make_mesh((dist.get_world_size(),), ("sample",), devices="cuda")
+    cfg = strotss_torch.StrotssConfig(max_iter=steps, shard_samples=True)
+    counted = _counted()
+    held, digests, grad_errs = [], [], []
+    step_losses, optimization_steps = (programs.step_losses,
+                                       solve.optimization_steps)
+
+    def held_step(spec, *a, **k):
+        out = step_losses(spec, *a, **k)
+        saved = {name: fn.launches for name, fn in counted.items()}
+        # the gradients with respect to float32 copies of the taps (a bf16
+        # tap's gradient would round each side to bf16 apart); the losses
+        # sample the taps in float32, so the values are the step's
+        pred = [t.detach().float().requires_grad_(True) for t in a[1]]
+        g = torch.autograd.grad(step_losses(spec, a[0], pred, *a[2:],
+                                            **k)[0], pred)
+        k.pop("sample_group", None)
+        ref = step_losses(spec._replace(shard_samples=False), a[0], pred,
+                          *a[2:], **k)
+        gu = torch.autograd.grad(ref[0], pred)
+        grad_errs.append(_grad_err(torch.cat([t.reshape(-1) for t in g]),
+                                   torch.cat([t.reshape(-1) for t in gu])))
+        ref = [t.detach() for t in ref]
+        for name, fn in counted.items():
+            fn.launches = saved[name]
+        held.append((torch.stack(out).detach(), torch.stack(ref)))
+        return out
+
+    def steps_then_digest(*a):
+        rows = optimization_steps(*a)
+        digests.append(hashlib.sha256(b"".join(
+            t.detach().cpu().numpy().tobytes() for t in a[7])).hexdigest())
+        return rows
+
+    programs.step_losses = held_step
+    solve.optimization_steps = steps_then_digest
+    try:
+        for fn in counted.values():
+            fn.launches = 0
+        _, info = strotss_torch.stylize(content, style, cfg, mesh=mesh)
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in counted.items()}
+    finally:
+        programs.step_losses = step_losses
+        solve.optimization_steps = optimization_steps
+    got = torch.stack([h[0] for h in held]).cpu().numpy()
+    ref = torch.stack([h[1] for h in held]).cpu().numpy()
+    errs = (np.abs(got - ref) / np.abs(ref)).max(axis=0).tolist()
+    falls = [bool(sc["curve"][-1, 0] < sc["curve"][0, 0])
+             for sc in info["scales"]]
+    dist.barrier()
+    t0 = time.perf_counter()
+    strotss_torch.stylize(content, style, cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return {"steps": len(held), "loss_rel_err": errs,
+            "grad_err": max(grad_errs), "pyramid_digests": digests, "falls": falls,
+            "launches": launches, "seconds": seconds,
+            "seconds_per_step": seconds / (cfg.levels * steps)}
+
+
+def _rank_batch(contents, styles, steps, seeds, alphas, halves=False):
+    """(d) ``stylize_batch`` on a 'data' mesh of every rank: the images,
+    float images and curves (each rank returns the whole batch), the
+    seconds and this rank's launches. With ``halves``, also each half of
+    the batch alone: the batches two ranks run. A 'data' mesh holds no
+    replicas and runs under the caller's switches: for the bitwise
+    comparison every run here takes PyTorch's deterministic algorithms,
+    as ``programs.precision`` sets them for replicas."""
+    import torch
+    import torch.distributed as dist
+    import torch.utils.deterministic
+
+    import strotss_torch
+    from strotss_torch.parallel import make_mesh, stylize_batch
+
+    mesh = make_mesh((dist.get_world_size(),), ("data",), devices="cuda")
+    cfg = strotss_torch.StrotssConfig(max_iter=steps)
+    counted = _counted()
+    dist.barrier()
+    for fn in counted.values():
+        fn.launches = 0
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        t0 = time.perf_counter()
+        imgs, info = stylize_batch(contents, styles, cfg, mesh=mesh,
+                                   pair_seeds=seeds, alphas=alphas)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+    out = {"images": imgs.cpu().numpy(),
+           "stylized": info["stylized"].cpu().numpy(),
+           "curves": [sc["curve"] for sc in info["scales"]],
+           "seconds": seconds,
+           "launches": {name: fn.launches for name, fn in counted.items()}}
+    if halves:
+        b = len(seeds) // 2
+        out["halves"] = [_rank_batch(contents[h], styles[h], steps,
+                                     seeds[h], alphas[h])
+                         for h in (slice(0, b), slice(b, None))]
+    return out
+
+
+def _rank_pair(remd_cases, content, style, contents, styles, steps, seeds,
+               alphas):
+    """One of two ranks sharing the card over gloo: (a), (b), (c), (d)."""
+    import torch.distributed as dist
+
+    out = {"backend": dist.get_backend(), "collectives": _rank_collectives()}
+    if out["collectives"]:
+        return out  # the phase fails on it; no run stages through the CPU
+    out["remd"] = _rank_remd(remd_cases)
+    out["shard_samples"] = _rank_shard_samples(content, style, steps)
+    out["batch"] = _rank_batch(contents, styles, steps, seeds, alphas)
+    return out
+
+
+def _rank_one(content, style, contents, styles, steps, seeds, alphas):
+    """The one-rank side on a world-size-1 NCCL mesh (this process, see
+    :func:`_in_process_rank`): the collectives, the unsharded run of (c)
+    timed after a one-step warm-up run (under a mesh, so with the same
+    deterministic switches) and the batch of (d)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    import strotss_torch
+    from strotss_torch.parallel import make_mesh
+
+    out = {"backend": dist.get_backend(), "collectives": _rank_collectives()}
+    mesh = make_mesh((1,), ("data",))
+    cfg = strotss_torch.StrotssConfig(max_iter=steps)
+    strotss_torch.stylize(content, style, dataclasses.replace(
+        cfg, max_iter=1), mesh=mesh)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    strotss_torch.stylize(content, style, cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    out["single_seconds"] = time.perf_counter() - t0
+    out["single_seconds_per_step"] = out["single_seconds"] / (
+        cfg.levels * steps)
+    out["batch"] = _rank_batch(contents, styles, steps, seeds, alphas,
+                               halves=True)
+    return out
+
+
+def _in_process_rank(fn, *args):
+    """``fn(*args)`` as rank 0 of a world of one on cuda:0, this process
+    joining NCCL itself (saves a process's start); the process group is
+    gone again when it returns."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from strotss_torch.parallel.launch import init_rank
+
+    with tempfile.TemporaryDirectory() as tmp:
+        init_rank(0, ["cuda:0"], os.path.join(tmp, "store"), timeout=600)
+        try:
+            return fn(*args)
+        finally:
+            dist.destroy_process_group()
+
+
+def _serve_nccl():
+    """(e) ``python -m strotss_torch.serve --batch 2 --data_devices 1``:
+    rank 0 alone on a world-size-1 NCCL mesh, 2 jobs as one group (one
+    64 px scale of 10 steps: the process's start dominates)."""
+    import os
+    import tempfile
+
+    from PIL import Image
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = []
+        for name, img in (("c", _smooth_image(240, 320, 91)),
+                          ("s", _smooth_image(320, 280, 92))):
+            paths.append(os.path.join(tmp, f"{name}.png"))
+            Image.fromarray((img[0] * 255).astype(np.uint8)).save(paths[-1])
+        outs = [os.path.join(tmp, f"out{i}.png") for i in range(2)]
+        jp = os.path.join(tmp, "jobs.jsonl")
+        with open(jp, "w") as f:
+            f.writelines(json.dumps({"content": paths[0], "style": paths[1],
+                                     "output": o, "seed": i}) + "\n"
+                         for i, o in enumerate(outs))
+        cmd = [sys.executable, "-m", "strotss_torch.serve", "--jobs", jp,
+               "--batch", "2", "--data_devices", "1", "--level", "1",
+               "--max_iter", "10"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                              timeout=300,
+                              env=dict(os.environ, PYTHONPATH=root))
+        seconds = time.perf_counter() - t0
+        check(proc.returncode == 0, f"multi (e): serve exit "
+              f"{proc.returncode}; stderr ends: {proc.stderr[-2000:]}")
+        results = [json.loads(ln) for ln in proc.stdout.splitlines()
+                   if ln.strip()]
+        written = [os.path.exists(o) for o in outs]
+    check(len(results) == 2 and all(r.get("ok") is True
+                                    and r.get("data_devices") == 1
+                                    for r in results),
+          f"multi (e): serve results {results}")
+    check(all(written), f"multi (e): outputs written {written}")
+    check("nccl" in proc.stderr, "multi (e): serve did not say it runs "
+          "NCCL")
+    return {"command": " ".join(cmd[1:]), "seconds": seconds,
+            "results": results}
+
+
+def phase_multi():
+    """The multi-device half on a one-card machine: (a) two ranks sharing
+    the card over gloo, whose collectives must take CUDA tensors, and a
+    world-size-1 NCCL mesh; (b) REMD at 1024 x 1024 x 2179 cosine and
+    1024 x 1024 x 3 'both' with K1 on each rank's 512-column shard: the
+    minima and argmins bit for bit the unsharded K1's, the loss to rtol
+    1e-6, the gradient to 1e-4 of max|g|, one K1 launch a rank a call;
+    (c) a full-width ``shard_samples`` run (VGG16, 9 taps, 1024 samples,
+    4 scales x 10 steps) on both ranks: every step's losses within rtol
+    1e-3 and its gradient with respect to the taps within 1e-4 of max|g|
+    of the unsharded step from the same state, and both ranks' pyramids
+    bit for bit equal after each scale; (d) 4 pairs at full width (4 x 10
+    steps) on a 2-rank 'data' mesh, bit for bit the one rank's runs of
+    the same two halves (both sides under the deterministic switches),
+    and its distance from the one rank's 4-pair batch; (e) serve over NCCL at ``--data_devices 1``. Two ranks on
+    one card with gloo staging through the host say nothing of scaling
+    across cards. Returns rank 0's launches in (c)."""
+    from strotss_torch.parallel.launch import launch
+
+    t0 = time.perf_counter()
+    steps = 10
+    content, style = _smooth_image(480, 640, 21), _smooth_image(720, 560, 22)
+    contents = np.concatenate([_smooth_image(480, 640, 40 + i)
+                               for i in range(4)])
+    styles = np.concatenate([_smooth_image(720, 560, 60 + i)
+                             for i in range(4)])
+    seeds, alphas = [1001, 1008, 1015, 1022], [0.5, 1.0, 2.0, 4.0]
+    remd_cases = [(1024, 1024, 2179, "cosine", 101),
+                  (1024, 1024, 3, "both", 103)]
+    pair = launch(_rank_pair, ["cuda:0", "cuda:0"],
+                  args=(remd_cases, content, style, contents, styles, steps,
+                        seeds, alphas), timeout=600)
+    check(all(r["backend"] == "gloo" for r in pair),
+          f"multi: backends {[r['backend'] for r in pair]}")
+    bad = [r["collectives"] for r in pair]
+    check(not any(bad), f"multi (a): gloo on CUDA tensors failed: {bad}")
+    one = _in_process_rank(_rank_one, content, style, contents, styles,
+                           steps, seeds, alphas)
+    check(one["backend"] == "nccl" and not one["collectives"],
+          f"multi (a): NCCL world of 1: {one['backend']} "
+          f"{one['collectives']}")
+    # (b)
+    for case in (c for r in pair for c in r["remd"]):
+        check(all(case["bitwise"].values()),
+              f"multi (b): {case['shape']} {case['distance']} not bit for "
+              f"bit: {case['bitwise']}")
+        check(case["loss_rel_err"] <= 1e-6,
+              f"multi (b): loss rel err {case['loss_rel_err']}")
+        check(case["grad_err"] <= 1e-4,
+              f"multi (b): grad err {case['grad_err']}")
+        check(case["k1_launches"] == 1,
+              f"multi (b): {case['k1_launches']} K1 launches a rank")
+    # (c)
+    sh = [r["shard_samples"] for r in pair]
+    check(all(s["steps"] == 4 * steps for s in sh),
+          f"multi (c): held {[s['steps'] for s in sh]} steps")
+    err = max(max(s["loss_rel_err"]) for s in sh)
+    check(err <= 1e-3, f"multi (c): sharded against unsharded steps {err}")
+    gerr = max(s["grad_err"] for s in sh)
+    check(gerr <= 1e-4, f"multi (c): sharded against unsharded step "
+          f"gradients {gerr} of max|g|")
+    check(sh[0]["pyramid_digests"] == sh[1]["pyramid_digests"],
+          "multi (c): the ranks' pyramids differ")
+    check(all(all(s["falls"]) for s in sh), "multi (c): a loss did not fall")
+    want = {"remd_mins": 2 * 4 * steps, "selfsim_fwd": 4 * steps,
+            "selfsim_bwd": 4 * steps, "block1_fwd": 4 * steps + 8,
+            "block1_bwd": 4 * steps, "sinkhorn_lse": 0, "sinkhorn_prep": 0}
+    check(all(s["launches"] == want for s in sh),
+          f"multi (c): launches {[s['launches'] for s in sh]}, want {want}")
+    # (d): each rank runs 2 pairs, so the one rank's runs of the same 2
+    # pairs are the bitwise reference. cuDNN picks other algorithms for a
+    # batch of 4 at 384x512 (block5_conv3's forward and the input
+    # gradient differ: tools/determinism_probe.py), so the 4-pair batch is
+    # the same function to rounding, and chaotic from there: its distance
+    # is reported.
+    two = [r["batch"] for r in pair]
+    ref = one["batch"]
+    halves = {k: np.concatenate([h[k] for h in ref["halves"]])
+              for k in ("images", "stylized")}
+    halves["curves"] = [np.concatenate([h["curves"][j]
+                                        for h in ref["halves"]], axis=1)
+                        for j in range(len(ref["curves"]))]
+    for r in two:
+        check(np.array_equal(r["images"], halves["images"])
+              and np.array_equal(r["stylized"], halves["stylized"])
+              and all(np.array_equal(a, b)
+                      for a, b in zip(r["curves"], halves["curves"])),
+              "multi (d): the 2-rank batch is not the 1-rank runs of its "
+              "halves bit for bit")
+    whole = {
+        "max_image_diff": int(np.abs(two[0]["images"].astype(int)
+                                     - ref["images"].astype(int)).max()),
+        "max_stylized_diff": float(np.abs(two[0]["stylized"]
+                                          - ref["stylized"]).max()),
+        "first_scale_curve_rel_diff": float(np.max(
+            np.abs(two[0]["curves"][0] - ref["curves"][0])
+            / np.abs(ref["curves"][0]))),
+        "bitwise": bool(np.array_equal(two[0]["stylized"],
+                                       ref["stylized"]))}
+    check(bool(np.all(np.isfinite(ref["stylized"]))),
+          "multi (d): non-finite one-rank batch")
+    served = _serve_nccl()
+    d_steps = 4 * steps
+    emit({"phase": "multi", "seconds": time.perf_counter() - t0,
+          "remd": [c for r in pair for c in r["remd"]],
+          "shard_samples": {
+              "config": "StrotssConfig(max_iter=10, shard_samples=True), "
+                        "480x640 / 720x560, 2 ranks on one card (gloo)",
+              "loss_rel_err": [s["loss_rel_err"] for s in sh],
+              "grad_err": [s["grad_err"] for s in sh],
+              "launches_per_rank": [s["launches"] for s in sh],
+              "seconds_per_step": [s["seconds_per_step"] for s in sh],
+              "one_rank_seconds_per_step": one["single_seconds_per_step"]},
+          "batch": {
+              "config": "4 pairs 480x640 / 720x560, StrotssConfig("
+                        "max_iter=10), 2 ranks (gloo) against 1 (NCCL)",
+              "bitwise_against_one_rank_halves": True,
+              "against_one_rank_whole_batch": whole,
+              "seconds_per_step": [r["seconds"] / d_steps for r in two],
+              "one_rank_seconds_per_step": ref["seconds"] / d_steps,
+              "launches_per_rank": [r["launches"] for r in two],
+              "one_rank_launches": ref["launches"]},
+          "serve": served})
+    return sh[0]["launches"]
+
+
 _TIMES = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")
 #: K1's own fields in the kernels line, beside the common ones
 _K1_FIELDS = ("route_taken", "host_ms", "tile_device_ms", "reduce_device_ms",
@@ -2133,12 +2590,14 @@ def _with_yuv(main, yuv):
     return entry
 
 
-def kernels_line(meas, launches, masked, features, batched):
+def kernels_line(meas, launches, masked, features, batched, multi):
     """``launches``: the main path's counts (K4's from the sinkhorn
     phase's run (b)); ``masked``: the masked phase's, as
     ``launches_masked``; ``features``: the features phase's blended run's,
     as ``launches_blended``; ``batched``: the batch phase's 8-pair run's,
-    as ``launches_batched``. The block1 rows carry the pair axis's times
+    as ``launches_batched``; ``multi``: rank 0's in the multi phase's
+    ``shard_samples`` run, as ``launches_multi_per_rank``. The block1 rows
+    carry the pair axis's times
     (B = 8 images at the batch's 64 px and 512 px content shapes: one
     launch, and B one-image launches as ``singles_ms``)."""
     ss_big = meas["selfsim_32769"]
@@ -2167,6 +2626,7 @@ def kernels_line(meas, launches, masked, features, batched):
             "launches_masked": masked[name],
             "launches_blended": features[name],
             "launches_batched": batched[name],
+            "launches_multi_per_rank": multi[name],
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
@@ -2208,6 +2668,7 @@ def main() -> int:
         masked = phase_masked(vgg_params)
         batched = phase_batch(main_info)
         phase_serve()
+        multi = phase_multi()
         features = phase_features(main_info)
         phase_profile(vgg_params)
         cosine_pass_ms = meas["sinkhorn_lse"][0]["ms"]
@@ -2219,7 +2680,7 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     print(json.dumps(kernels_line(meas, launches, masked, features,
-                                  batched)), flush=True)
+                                  batched, multi)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -15,8 +15,13 @@ from strotss_torch.solve import stylize_single
 from strotss_torch.validation import check_image, check_masks
 
 
-def resolve_device(device=None) -> torch.device:
-    """``None`` -> ``cuda``; a CUDA device must exist (no CPU fallback)."""
+def resolve_device(device=None, mesh=None) -> torch.device:
+    """``None`` -> ``cuda`` (under a mesh: the rank's own device); a CUDA
+    device must exist (no CPU fallback)."""
+    if device is None and mesh is not None:
+        from strotss_torch.parallel.mesh import rank_device
+
+        return rank_device(mesh)
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -46,6 +51,7 @@ def stylize(
     init_image=None,
     style_weights=None,
     device=None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Dict]:
     """Stylize ``content`` with ``style`` (both (1,H,W,3) float in [0,1],
     numpy arrays or tensors), optionally region by region:
@@ -67,6 +73,12 @@ def stylize(
     Returns the uint8 HWC stylized image (on the run's device) and an info
     dict with per-scale losses and timings. ``device``: ``None`` (the
     first CUDA card), ``'cuda:<id>'`` or ``'cpu'``.
+
+    ``mesh``: a :func:`strotss_torch.parallel.make_mesh` mesh (as in
+    ``strotss_tpu/api.py:25-36``): every rank calls ``stylize`` with the
+    same inputs and gets the whole result; the device is the rank's own.
+    With ``cfg.shard_samples`` the transport losses split the style
+    samples over its 'sample' axis.
     """
     check_image("content", content)
     multi = isinstance(style, (list, tuple))
@@ -75,7 +87,7 @@ def stylize(
     if init_image is not None:
         check_image("init_image", init_image)
     check_masks(content_masks, style_masks)
-    dev = resolve_device(device)
+    dev = resolve_device(device, mesh)
     cfg = cfg or StrotssConfig()
     if vgg_params is None:
         vgg_params = load_vgg_params(cfg.vgg_type, cfg.use_keras_weight)
@@ -90,5 +102,5 @@ def stylize(
         progress_cb=progress_cb, snapshot_cb=snapshot_cb,
         init_image=(None if init_image is None
                     else _to_device(init_image, dev)),
-        style_weights=style_weights, **masks,
+        style_weights=style_weights, mesh=mesh, **masks,
     )

@@ -2,9 +2,11 @@
 
 The port's own copy of ``strotss_tpu/config.py``'s ``StrotssConfig``, with
 the same fields and defaults (a test holds them equal). Importing the JAX
-package's module would import JAX, so the port keeps this copy. The
-sharding fields exist so that configurations carry over; the port raises
-where one of them is set (ROADMAP.md Queue 1 item 13).
+package's module would import JAX, so the port keeps this copy.
+``shard_samples`` splits the transport losses' style samples over a
+mesh's 'sample' axis (not with ``use_sinkhorn``: ROADMAP.md Queue 1 item
+17); ``shard_spatial`` exists so that configurations carry over, and the
+port raises where it is set (item 16).
 """
 
 from __future__ import annotations
@@ -73,7 +75,8 @@ class StrotssConfig:
     use_sinkhorn: bool = False
     sinkhorn_lambda: float = 10.0
     sinkhorn_iters: int = 30
-    #: multi-device sharding (not ported yet)
+    #: split REMD's style samples over the mesh's 'sample' axis (needs
+    #: ``mesh=``); the spatial split is not ported
     shard_samples: bool = False
     shard_spatial: bool = False
 

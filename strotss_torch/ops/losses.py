@@ -194,6 +194,7 @@ def style_loss(
     sinkhorn_iters: int = 30,
     remd_impl: str = "auto",
     target_moments: Optional[tuple] = None,
+    remd=None,
 ) -> torch.Tensor:
     """``moments + T(cosine) + (1/max(alpha,1)) * T(YUV, 'both')``, with
     the transport term T REMD, or Sinkhorn under ``use_sinkhorn``.
@@ -202,7 +203,10 @@ def style_loss(
     memory gate; 'plain': the materialized path at every size), as the
     JAX package passes its ``remd_impl`` on.
     ``target_moments``: optional precomputed :func:`moment_stats` of
-    ``target`` (the solver hoists them out of the step loop).
+    ``target`` (the solver hoists them out of the step loop). ``remd``:
+    the REMD function ``(target, prediction, distance) -> value`` in
+    place of :func:`relaxed_emd` (the sample-sharded one under
+    ``shard_samples``).
     """
     inv_alpha = 1.0 / max(float(alpha), 1.0)
     if target_moments is None:
@@ -215,8 +219,11 @@ def style_loss(
         l_p = sinkhorn(yuv_t, yuv_p, "both", sinkhorn_lambda,
                        sinkhorn_iters, impl=remd_impl)
     else:
-        l_t = relaxed_emd(target, prediction, "cosine", impl=remd_impl)
-        l_p = relaxed_emd(yuv_t, yuv_p, "both", impl=remd_impl)
+        if remd is None:
+            def remd(x, y, distance):
+                return relaxed_emd(x, y, distance, impl=remd_impl)
+        l_t = remd(target, prediction, "cosine")
+        l_p = remd(yuv_t, yuv_p, "both")
     return l_m + l_t + inv_alpha * l_p
 
 

@@ -19,8 +19,18 @@ padded to a common K, with ``region_valid`` (B, K) weights; a pair runs
 and draws its regions of nonzero weight, in order, so a pair with K_b
 valid regions is its single masked run on those K_b regions.
 
-The JAX package shards the pair axis over a device mesh; the port runs on
-one device (``mesh``, ``cfg.shard_samples``: ROADMAP.md Queue 1 item 13).
+With a mesh (:func:`strotss_torch.parallel.make_mesh`) every rank calls
+with the whole batch; rank d of the mesh's 'data' axis of size D runs
+pairs [d B/D, (d + 1) B/D) and the images and curves are gathered, so
+every rank returns the whole batch in pair order. Pairs keep their global
+seeds, so each pair is its unsharded result (on the card bit for bit
+when the caller switches on ``torch.use_deterministic_algorithms``: a
+'data' axis holds no replicas, so it runs under the caller's switches, as
+an unsharded run does). Under ``cfg.shard_samples`` a (``data``,
+``sample``) mesh splits each pair's REMD terms over the 'sample' axis as
+well (:mod:`strotss_torch.parallel.transport`); the ranks of a 'sample'
+group hold replicas of their pairs' pyramid, so they run under the
+deterministic algorithms and are checked to agree after each scale.
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from strotss_torch.api import _to_device, resolve_device
 from strotss_torch.config import StrotssConfig
@@ -60,7 +71,14 @@ from strotss_torch.programs import (
     spec_from_config,
     warm_init_hw,
 )
-from strotss_torch.solve import scale_generators, scale_mode_shapes
+from strotss_torch.parallel.mesh import axis_size, batch_sharding
+from strotss_torch.solve import (
+    check_replicas,
+    checkpoint_sync,
+    sample_group,
+    scale_generators,
+    scale_mode_shapes,
+)
 from strotss_torch.utils import checkpoint as ckpt
 from strotss_torch.validation import check_image, check_masks, \
     check_start_level
@@ -131,12 +149,13 @@ def prepare_scale_batch(spec: StepSpec, mode: str, chw, shw, levels: int,
 
 
 def run_chunk_batch(spec: StepSpec, n_steps: int, vgg: VGG, content_feats,
-                    pairs, pyramid, opt: RMSprop, coords_fn, images=False):
+                    pairs, pyramid, opt: RMSprop, coords_fn, images=False,
+                    sample_group=None):
     """``n_steps`` (>= 1) batched steps (``batch.py:148-238``): the
     (n_steps, B, 3) loss rows on the device and, with ``images``, the
     chunk's float and uint8 images (:func:`_images`), else None."""
     rows = batch_steps(spec, n_steps, vgg, content_feats, pairs, pyramid,
-                       opt, coords_fn)
+                       opt, coords_fn, sample_group)
     return rows, (_images(pyramid) if images else None)
 
 
@@ -160,7 +179,8 @@ def _check_pairs(contents, styles, init_images, content_masks, style_masks,
                  region_valid, alphas, pair_seeds, cfg, mesh):
     """The JAX package's checks, word for word where it has them, and the
     port's refusals of what it does not run. Returns (B, alphas as a
-    float64 array or None, pair seeds as ints or None)."""
+    float64 array or None, pair seeds as ints or None, the 'sample'
+    process group under ``cfg.shard_samples`` or None)."""
     check_image("contents", contents, batched=True)
     check_image("styles", styles, batched=True)
     if contents.shape[0] != styles.shape[0]:
@@ -180,16 +200,20 @@ def _check_pairs(contents, styles, init_images, content_masks, style_masks,
         raise ValueError(
             "shard_spatial is a single-pair scale-out feature (stylize); "
             "the batched path scales over the mesh's 'data' axis instead")
-    if cfg.shard_samples:
-        raise NotImplementedError(
-            "StrotssConfig.shard_samples is not ported to strotss_torch yet "
-            "(ROADMAP.md Queue 1 item 13)")
-    if mesh is not None:
-        raise NotImplementedError(
-            "stylize_batch(mesh=...) is not ported to strotss_torch yet "
-            "(ROADMAP.md Queue 1 item 13): the port runs a batch on one "
-            "device")
+    group = sample_group(cfg, mesh, "stylize_batch",
+                         "(D, S), ('data', 'sample')")
+    names = () if mesh is None else tuple(mesh.mesh_dim_names or ())
+    if mesh is not None and "data" not in names:
+        raise ValueError(
+            "stylize_batch shards the pair axis over the mesh's 'data' "
+            f"axis, but the given mesh has axes {names} — build "
+            "it with make_mesh((D,), ('data',)) (or ('data', 'sample'))")
     B = int(contents.shape[0])
+    if mesh is not None and B % axis_size(mesh, "data"):
+        raise ValueError(
+            f"stylize_batch splits the {B} pairs over the mesh's 'data' "
+            f"axis of size {axis_size(mesh, 'data')}: the batch must be a "
+            "multiple of it")
     if pair_seeds is not None:
         shape = np.shape(pair_seeds)
         if shape != (B,):
@@ -206,7 +230,7 @@ def _check_pairs(contents, styles, init_images, content_masks, style_masks,
                 f"{alphas.shape}")
         if not np.all(np.isfinite(alphas)):
             raise ValueError("alphas must be finite")
-    return B, alphas, pair_seeds
+    return B, alphas, pair_seeds, group
 
 
 def _regions(region_valid, B: int, k: int):
@@ -257,9 +281,10 @@ def stylize_batch(
     like ``cfg.alpha``). ``pair_seeds``: optional (B,) per-pair seeds;
     without them pair b's seed is :func:`pair_seed` ``(cfg.seed, b)``.
     ``coords_source`` replaces the generators (tests replay the JAX
-    package's per-pair coordinates). ``mesh`` must be ``None``: the port
-    runs a batch on one device. ``device``: ``None`` (the first CUDA
-    card), ``'cuda:<id>'`` or ``'cpu'``.
+    package's per-pair coordinates). ``mesh``: a mesh with a 'data' axis
+    whose size divides B (every rank calls with the whole batch, and runs
+    its part; see the module). ``device``: ``None`` (the first CUDA card;
+    under a mesh the rank's own), ``'cuda:<id>'`` or ``'cpu'``.
 
     Returns ((B, H', W', 3) uint8 on the run's device, info): ``batch``,
     per scale ``alpha`` (a float when all pairs share it, else a list),
@@ -271,13 +296,15 @@ def stylize_batch(
     ``seed=pair_seeds[b]`` and ``alpha=alphas[b]``, to float tolerance.
     With ``cfg.checkpoint_dir`` the state (the pyramid, the RMSprop slots,
     the B step generators and the per-pair alphas) is saved after every
-    chunk, and a run of the same configuration resumes from it.
+    chunk, and a run of the same configuration resumes from it; under a
+    mesh rank 0 writes the whole batch's state, so a checkpoint resumes
+    with or without a mesh.
     """
     cfg = cfg or StrotssConfig()
-    B, alphas, seeds = _check_pairs(contents, styles, init_images,
-                                    content_masks, style_masks, region_valid,
-                                    alphas, pair_seeds, cfg, mesh)
-    dev = resolve_device(device)
+    B, alphas, seeds, group = _check_pairs(
+        contents, styles, init_images, content_masks, style_masks,
+        region_valid, alphas, pair_seeds, cfg, mesh)
+    dev = resolve_device(device, mesh)
     if vgg_params is None:
         vgg_params = load_vgg_params(cfg.vgg_type, cfg.use_keras_weight)
     masked = content_masks is not None
@@ -286,19 +313,27 @@ def stylize_batch(
     if seeds is None:
         seeds = [pair_seed(cfg.seed, b) for b in range(B)]
     spec = spec_from_config(cfg, dev, masked=masked, batched=True)
+    # this rank's pairs: all of them without a mesh
+    part = slice(0, B) if mesh is None else batch_sharding(mesh, B)
+    data = None if mesh is None else mesh.get_group("data")
+    lead = mesh is None or mesh.get_rank() == 0
+    bl = part.stop - part.start
+    if coords_source is not None and part.start:
+        src = coords_source
+        coords_source = lambda b, *a: src(part.start + b, *a)  # noqa: E731
 
     # cap, not resize: serve's inputs were resized at load time already
-    contents = cap_max(_to_device(contents, dev), cfg.max_size)
-    styles = cap_max(_to_device(styles, dev), cfg.max_size)
+    contents = cap_max(_to_device(contents[part], dev), cfg.max_size)
+    styles = cap_max(_to_device(styles[part], dev), cfg.max_size)
     if masked:
-        content_masks = _to_device(content_masks, dev)
-        style_masks = _to_device(style_masks, dev)
+        content_masks = _to_device(content_masks[part], dev)
+        style_masks = _to_device(style_masks[part], dev)
     warm = init_images is not None
     if warm:
         # one direct resize to the first executed scale's resolution: the
         # single path's resample (a no-op when serve stacked them there)
         init_images = resize_bilinear(
-            _to_device(init_images, dev),
+            _to_device(init_images[part], dev),
             warm_init_hw(contents.shape[1], contents.shape[2], cfg))
 
     fingerprint = {
@@ -310,8 +345,8 @@ def stylize_batch(
         "pyramid_levels": cfg.pyramid_levels,
         "seed": cfg.seed,
         "spec": [list(v) if isinstance(v, tuple) else v for v in spec],
-        "content_shape": list(contents.shape),
-        "style_shape": list(styles.shape),
+        "content_shape": [B] + list(contents.shape[1:]),
+        "style_shape": [B] + list(styles.shape[1:]),
         "n_regions": k if masked else 0,
     }
     if warm:
@@ -332,10 +367,14 @@ def stylize_batch(
                 f"range for levels={cfg.levels}; delete the checkpoint "
                 "directory to start fresh.")
 
+    # every pair's alpha (the checkpoint's); this rank's are alpha[part]
     alpha = [cfg.initial_alpha()] * B if alphas is None else [
         dataclasses.replace(cfg, alpha=float(a)).initial_alpha()
         for a in alphas]
-    with precision(spec):
+    regions, weights, seeds = regions[part], weights[part], seeds[part]
+    # the ranks of a 'sample' group hold replicas of their pairs' pyramid;
+    # a 'data' axis alone runs each pair on one rank
+    with precision(spec, deterministic=group is not None):
         vgg = VGG({name: {n: t.to(dev) for n, t in p.items()}
                    for name, p in vgg_params.items()},
                   taps=spec.taps, vgg_type=spec.vgg_type,
@@ -361,7 +400,7 @@ def stylize_batch(
             mode, chw, shw = scale_mode_shapes(cfg, contents.shape,
                                                styles.shape, i, scl, warm)
             lr = cfg.lr / 2 if (i == cfg.levels - 1 and i > 0) else cfg.lr
-            gens = [scale_generators(s, i, dev) for s in seeds]
+            gens = [scale_generators(sd, i, dev) for sd in seeds]
             step_gens = [g[1] for g in gens]
             done = 0
             ran = True
@@ -376,8 +415,8 @@ def stylize_batch(
                     style_masks, coords_source))
             opt = RMSprop(pyramid, lr)
             if resume is not None:  # i is the checkpoint's scale
-                saved = ckpt.restore_state(cfg.checkpoint_dir,
-                                           _state(pyramid, opt, step_gens))
+                saved = _restore(cfg.checkpoint_dir,
+                                 _state(pyramid, opt, step_gens), B, part)
                 with torch.no_grad():
                     for j, p in enumerate(pyramid):
                         p.copy_(saved[f"pyramid.{j}"])
@@ -388,8 +427,9 @@ def stylize_batch(
                 alpha = [float(a) for a in np.broadcast_to(
                     np.asarray(resume["alpha"], np.float64), (B,))]
                 resume = None
-            pairs = [PairTerms(targets[b], moments[b], alpha[b], weights[b])
-                     for b in range(B)]
+                checkpoint_sync(mesh, cfg)
+            pairs = [PairTerms(targets[b], moments[b], alpha[part][b],
+                               weights[b]) for b in range(bl)]
 
             def coords_fn(b, t, i=i, chw=chw, cmasks=cmasks,
                           step_gens=step_gens):
@@ -404,45 +444,109 @@ def stylize_batch(
                 rows, images = run_chunk_batch(
                     spec, steps, vgg, content_feats, pairs, pyramid, opt,
                     lambda b, t, d=done: coords_fn(b, d + t),
-                    images=bool(cfg.checkpoint_dir))
+                    images=bool(cfg.checkpoint_dir), sample_group=group)
                 curve.append(rows)
                 if cfg.checkpoint_dir:
-                    ckpt.save_state(
-                        cfg.checkpoint_dir, i, done + steps, alpha,
-                        _state(pyramid, opt, step_gens),
-                        fingerprint=fingerprint,
-                        extras={"stylized": images[0],
-                                "image_u8": images[1]})
+                    state = _state(pyramid, opt, step_gens)
+                    extras = {"stylized": images[0], "image_u8": images[1]}
+                    if data is not None:
+                        state, extras = _gather_state(state, data), {
+                            name: _gather_pairs(v, data)
+                            for name, v in extras.items()}
+                    if lead:
+                        ckpt.save_state(cfg.checkpoint_dir, i, done + steps,
+                                        alpha, state,
+                                        fingerprint=fingerprint,
+                                        extras=extras)
+                    checkpoint_sync(mesh, cfg)
                 if progress_cb is not None:
-                    block = curve[-1].mean(dim=1).cpu().numpy()
+                    block = rows if data is None else _gather_pairs(
+                        rows.transpose(0, 1), data).transpose(0, 1)
+                    block = block.mean(dim=1).cpu().numpy()
                     for j in range(steps):
                         progress_cb(scl, done + j + 1, cfg.max_iter,
                                     {"loss": float(block[j, 0]),
                                      "loss_c": float(block[j, 1]),
                                      "loss_s": float(block[j, 2])})
                 done += steps
+            check_replicas(pyramid, group, i)
             kept = ({} if ran or not cfg.checkpoint_dir
                     else ckpt.restore_extras(cfg.checkpoint_dir))
             if "stylized" in kept and "image_u8" in kept:
                 # a resume on a completed chunk boundary: the saved images
                 # go on to the next scale as the interrupted run made them
-                stylized = torch.from_numpy(kept["stylized"]).to(dev)
-                final_u8 = torch.from_numpy(kept["image_u8"]).to(dev)
+                stylized = torch.from_numpy(kept["stylized"][part]).to(dev)
+                final_u8 = torch.from_numpy(kept["image_u8"][part]).to(dev)
             else:
                 stylized, final_u8 = images or _images(pyramid)
+            checkpoint_sync(mesh, cfg)
             curve_np = (torch.cat(curve).cpu().numpy() if curve
-                        else np.zeros((0, B, 3), np.float32))
-            entry = {"scale": scl,
-                     "alpha": (float(alpha[0]) if len(set(alpha)) == 1
-                               else [float(a) for a in alpha]),
-                     "seconds": time.perf_counter() - t_scale,
-                     "curve": curve_np}
-            if len(curve_np):
-                last = curve_np[-1].mean(axis=0)
+                        else np.zeros((0, bl, 3), np.float32))
+            info["scales"].append({
+                "scale": scl,
+                "alpha": (float(alpha[0]) if len(set(alpha)) == 1
+                          else [float(a) for a in alpha]),
+                "seconds": time.perf_counter() - t_scale,
+                "curve": curve_np})
+            alpha = [a / 2.0 for a in alpha]
+        if data is not None:
+            # every rank returns the whole batch, in pair order
+            final_u8 = _gather_pairs(final_u8, data)
+            stylized = _gather_pairs(stylized, data)
+            curves = [None] * dist.get_world_size(data)
+            dist.all_gather_object(
+                curves, [e["curve"] for e in info["scales"]], group=data)
+            for j, entry in enumerate(info["scales"]):
+                entry["curve"] = np.concatenate([c[j] for c in curves], 1)
+        for entry in info["scales"]:
+            if len(entry["curve"]):
+                last = entry["curve"][-1].mean(axis=0)
                 entry.update(loss=float(last[0]), loss_c=float(last[1]),
                              loss_s=float(last[2]))
-            info["scales"].append(entry)
-            alpha = [a / 2.0 for a in alpha]
         info["seconds"] = time.perf_counter() - t_total
     info["stylized"] = stylized
     return final_u8, info
+
+
+def _gather_pairs(t: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's equal part of a leading pair axis over the 'data'
+    ``group``, concatenated in pair order."""
+    t = t.detach().contiguous()
+    out = t.new_empty((dist.get_world_size(group) * t.shape[0],)
+                      + tuple(t.shape[1:]))
+    with torch.no_grad():
+        dist.all_gather_into_tensor(out, t, group=group)
+    return out
+
+
+def _gather_state(state: Dict, group) -> Dict:
+    """The whole batch's checkpoint state from every rank's part: the
+    pair-leading leaves gathered, the step generators renumbered by
+    their pairs' global index."""
+    gens = {name: v for name, v in state.items() if name.startswith("rng.")}
+    out = {name: _gather_pairs(v, group) for name, v in state.items()
+           if name not in gens}
+    parts = [None] * dist.get_world_size(group)
+    dist.all_gather_object(parts, [gens[f"rng.{b}"]
+                                   for b in range(len(gens))], group=group)
+    flat = [g for part in parts for g in part]
+    out.update({f"rng.{b}": g for b, g in enumerate(flat)})
+    return out
+
+
+def _restore(directory: str, template: Dict, B: int, part: slice) -> Dict:
+    """This rank's part of a checkpoint of the whole batch: the saved
+    leaves for pairs ``part`` of ``B``, under ``template``'s names."""
+    whole = {}
+    for name, t in template.items():
+        if name.startswith("rng."):
+            continue
+        whole[name] = torch.empty((B,) + tuple(t.shape[1:]), dtype=t.dtype)
+    gen = next(t for name, t in template.items() if name.startswith("rng."))
+    whole.update({f"rng.{b}": gen for b in range(B)})
+    saved = ckpt.restore_state(directory, whole)
+    out = {name: saved[name][part].to(t.device)
+           for name, t in template.items() if not name.startswith("rng.")}
+    out.update({f"rng.{b}": saved[f"rng.{part.start + b}"]
+                for b in range(part.stop - part.start)})
+    return out

@@ -14,6 +14,14 @@ targets, and averaged. A batched step (:func:`batch_steps`) runs VGG once
 on B pairs' images and sums the pairs' losses. PyTorch runs eagerly, so
 the JAX package's per-scale compiled programs become a Python loop over
 steps (and over regions and pairs).
+
+Under ``shard_samples`` both REMD terms split the style targets' rows
+over the mesh's 'sample' ranks (:mod:`strotss_torch.parallel.transport`,
+K1 on each rank's shard); the content loss (K2a, K2b) and the moments
+stay whole on every rank, since K2a has no row-range interface. The JAX
+package forces its plain XLA losses under sharding
+(``strotss_tpu/programs.py:111-118``); the port keeps its kernels, which
+run on one rank's tensors.
 """
 
 from __future__ import annotations
@@ -47,7 +55,10 @@ class StepSpec(NamedTuple):
     ``remd_impl`` is the Sinkhorn route (``'auto'``: the memory gate;
     ``'plain'``: materialized at every size). ``block1_impl`` is VGG
     block1's route for the run's device, ``'pallas'`` (fused, kernel K3)
-    or ``'xla'`` (``F.conv2d``).
+    or ``'xla'`` (``F.conv2d``). ``shard_samples``: both REMD terms split
+    the style samples over the mesh's 'sample' axis
+    (:mod:`strotss_torch.parallel.transport`); the process group comes to
+    :func:`step_losses` as an argument.
     """
 
     sample_size: int
@@ -62,6 +73,7 @@ class StepSpec(NamedTuple):
     selfsim_impl: str
     block1_impl: str
     remat: bool = False
+    shard_samples: bool = False
 
 
 def _block1_route(cfg: StrotssConfig, device) -> str:
@@ -113,6 +125,7 @@ def spec_from_config(cfg: StrotssConfig, device="cpu",
         selfsim_impl=impl,
         block1_impl=_block1_route(cfg, device),
         remat=cfg.remat,
+        shard_samples=cfg.shard_samples,
     )
 
 
@@ -129,11 +142,21 @@ def set_precision(spec: StepSpec) -> None:
 
 
 @contextlib.contextmanager
-def precision(spec: StepSpec):
+def precision(spec: StepSpec, deterministic: bool = False):
     """:func:`set_precision` for the body of the ``with``, then every
     switch it sets back as it was: the float32 matmul precision, oneDNN's
     and cuBLAS's fp32 modes and cuDNN's TF32 flag, so a run leaves the
-    process's numerics as it found them."""
+    process's numerics as it found them.
+
+    ``deterministic``: PyTorch's deterministic algorithms too, for ranks
+    that hold replicas of one computation (``stylize_single`` under a
+    mesh, a batch's 'sample' groups). On the card some backward passes add
+    with atomics in an order that changes from run to run (``index_add_``
+    in K1's VJP, for one), so replicas on two ranks would drift apart;
+    with these switches every rank computes the same bits, and
+    ``solve.check_replicas`` fails the run if they do not. Off, the
+    caller's setting stands. Uninitialized memory is left unfilled: every
+    kernel writes all of its outputs."""
     b = torch.backends
     try:
         legacy = torch.get_float32_matmul_precision()
@@ -141,7 +164,13 @@ def precision(spec: StepSpec):
         legacy = None
     saved = (b.mkldnn.matmul.fp32_precision, b.cuda.matmul.fp32_precision,
              b.cudnn.allow_tf32)
+    det = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled(),
+           torch.utils.deterministic.fill_uninitialized_memory)
     set_precision(spec)
+    if deterministic:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.utils.deterministic.fill_uninitialized_memory = False
     try:
         yield
     finally:
@@ -150,6 +179,8 @@ def precision(spec: StepSpec):
         b.mkldnn.matmul.fp32_precision = saved[0]
         b.cuda.matmul.fp32_precision = saved[1]
         b.cudnn.allow_tf32 = saved[2]
+        torch.use_deterministic_algorithms(det[0], warn_only=det[1])
+        torch.utils.deterministic.fill_uninitialized_memory = det[2]
 
 
 class RMSprop:
@@ -260,7 +291,7 @@ def scale_seed(mode: str, chw, shw, levels: int, content, style, prev,
 
 def step_losses(spec: StepSpec, content_feats, pred, style_targets,
                 style_moments, alpha: float, coords: torch.Tensor,
-                weights=None):
+                weights=None, sample_group=None):
     """(loss, loss_c, loss_s) of one step at the given sample coords.
 
     One entry a region: (K, n, 2) ``coords``, (K, n, C) ``style_targets``
@@ -269,8 +300,24 @@ def step_losses(spec: StepSpec, content_feats, pred, style_targets,
     sum_k (alpha lc_k + ls_k) / (K denom)
     (``strotss_tpu/programs.py:663-675``). ``weights``: K floats that
     replace the 1/K of the mean (a batch's ``region_valid`` weights).
+
+    Under ``spec.shard_samples`` both REMD terms split the style targets'
+    rows over ``sample_group`` (the mesh's 'sample' process group), K1
+    running on each rank's shard. The content loss (K2a, K2b) and the
+    moments stay whole on every rank: K2a has no row-range interface, and
+    at N = 1024 the pair takes 0.491 ms of device time a step on an NVIDIA
+    H100 80GB HBM3 at 700 W (PERF.md's kernel table, K2 row), the most a
+    split could save.
     """
     denom = 2.0 + alpha + 1.0 / max(alpha, 1.0)
+    remd = None
+    if spec.shard_samples:
+        from strotss_torch.parallel.transport import remd_over_group
+
+        def remd(target, p_feat, distance):
+            # the prediction whole on every rank, the targets split
+            return remd_over_group(p_feat, target, sample_group, distance,
+                                   spec.remd_impl)
     k = coords.shape[0]
     lc = ls = 0.0
     for r, (xy, target, tmom) in enumerate(zip(coords, style_targets,
@@ -281,7 +328,8 @@ def step_losses(spec: StepSpec, content_feats, pred, style_targets,
                           use_sinkhorn=spec.use_sinkhorn,
                           sinkhorn_lambda=spec.sinkhorn_lambda,
                           sinkhorn_iters=spec.sinkhorn_iters,
-                          remd_impl=spec.remd_impl, target_moments=tmom)
+                          remd_impl=spec.remd_impl, target_moments=tmom,
+                          remd=remd)
         if weights is None:
             lc, ls = lc + lc_r / k, ls + ls_r / k
         else:
@@ -291,7 +339,8 @@ def step_losses(spec: StepSpec, content_feats, pred, style_targets,
 
 def optimization_steps(spec: StepSpec, n_steps: int, vgg: VGG, content_feats,
                        style_targets, style_moments, alpha: float, pyramid,
-                       opt: RMSprop, coords_fn: Callable[[int], torch.Tensor]):
+                       opt: RMSprop, coords_fn: Callable[[int], torch.Tensor],
+                       sample_group=None):
     """``n_steps`` (>= 1) of sample -> VGG -> losses -> grad -> RMSprop.
 
     ``pyramid`` (a list of leaf tensors) is updated in place; the per-step
@@ -299,7 +348,7 @@ def optimization_steps(spec: StepSpec, n_steps: int, vgg: VGG, content_feats,
     run's device, so the loop never waits for the card. ``style_moments``
     are the targets' :func:`moment_stats`, hoisted out of the loop; the
     targets, moments and ``coords_fn``'s coordinates have one entry per
-    region (:func:`step_losses`).
+    region (:func:`step_losses`, which takes ``sample_group``).
     """
     rows = []
     for t in range(n_steps):
@@ -308,7 +357,8 @@ def optimization_steps(spec: StepSpec, n_steps: int, vgg: VGG, content_feats,
         img = fold_laplacian_pyramid(leaves)
         pred = extract_for_grad(spec, vgg, img)
         loss, lc, ls = step_losses(spec, content_feats, pred, style_targets,
-                                   style_moments, alpha, coords)
+                                   style_moments, alpha, coords,
+                                   sample_group=sample_group)
         # under remat nothing else holds the taps: the backward recomputes
         # them instead of keeping these alive beside the recomputed ones
         del pred
@@ -332,7 +382,8 @@ class PairTerms(NamedTuple):
 
 def batch_steps(spec: StepSpec, n_steps: int, vgg: VGG, content_feats,
                 pairs: Sequence[PairTerms], pyramid, opt: RMSprop,
-                coords_fn: Callable[[int, int], torch.Tensor]):
+                coords_fn: Callable[[int, int], torch.Tensor],
+                sample_group=None):
     """``n_steps`` (>= 1) of the batched step for B pairs: the (B, ...)
     pyramid folds into B images, VGG runs once on all of them, and pair b
     takes :func:`step_losses` at its own coordinates ``coords_fn(b, t)``
@@ -346,6 +397,7 @@ def batch_steps(spec: StepSpec, n_steps: int, vgg: VGG, content_feats,
     run adds nothing and rows zeros. ``pyramid`` is updated in place; the
     per-step (loss, loss_c, loss_s) rows come back as one (n_steps, B, 3)
     tensor on the run's device, so the loop never waits for the card.
+    ``sample_group``: as in :func:`step_losses`.
     """
     content = [f.unbind(0) for f in content_feats]
     rows = []
@@ -363,7 +415,7 @@ def batch_steps(spec: StepSpec, n_steps: int, vgg: VGG, content_feats,
             loss, lc, ls = step_losses(
                 spec, [f[b] for f in content], [f[b] for f in pred],
                 pair.targets, pair.moments, pair.alpha, coords[b],
-                pair.weights)
+                pair.weights, sample_group)
             total = loss if total is None else total + loss
             per.append(torch.stack([loss, lc, ls]).detach())
         del pred

@@ -42,9 +42,22 @@ sizes) runs a synthetic job of that shape bucket through the serving path
 before any real job is read: the kernels' build and first launches, and
 with ``--batch N`` a batch of N, are paid at deploy time.
 
-``--data_devices`` (pairs over several cards) is ROADMAP.md Queue 1 item
-13: a value above 0 is refused with exit code 2; ``--allow_cpu_devices``
-is accepted for the JAX CLI's sake.
+Scale-out: ``--data_devices D`` splits each full batch group over D
+ranks on a 'data' mesh (``strotss_torch.parallel.make_mesh``), one
+process a card: this process is rank 0 and starts D - 1 follower ranks
+(``strotss_torch.parallel.launch``). Rank 0 reads the jobs, loads each
+group's images and puts them in every follower's inbox (a queue, which
+has no timeout, so a long job on rank 0 alone keeps no rank waiting in a
+collective); all ranks run ``stylize_batch(mesh=...)``, and rank 0
+writes the results, marked ``"data_devices": D``. ``--batch`` must be a
+multiple of D and above 1; groups that D does not divide (end-of-stream
+flushes) and single jobs run on rank 0 alone. With fewer cards than D,
+``--allow_cpu_devices`` runs the ranks on the CPU (dev and tests only;
+``--cpu`` asks for that too); without it serve exits with code 2. A
+group that fails on the mesh may leave the ranks at different
+collectives: fresh follower ranks start, and the group is retried job by
+job. A follower's death ends serve with a non-zero exit code; the
+process group's timeout is the last resort.
 
 Shutdown: SIGTERM drains: a job in flight finishes (no torn output
 files), queued jobs of the current batch group still run, then the
@@ -61,6 +74,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import pickle
 import signal
 import sys
 import time
@@ -87,11 +101,15 @@ def build_parser() -> argparse.ArgumentParser:
                              "jobs into one batched run (each pair's "
                              "trajectory is its single run's)")
     parser.add_argument("--data_devices", type=int, default=0,
-                        help="shard batched groups across this many "
-                             "devices: not ported (ROADMAP.md Queue 1 item "
-                             "13); a value above 0 exits with code 2")
+                        help="split full batch groups over this many "
+                             "ranks, one process a card, on a 'data' mesh "
+                             "(pairs are independent). Requires --batch "
+                             "divisible by it; flush groups it does not "
+                             "divide run on one device. 0 = off.")
     parser.add_argument("--allow_cpu_devices", action="store_true",
-                        help="accepted for the JAX CLI's sake; no effect")
+                        help="let --data_devices run its ranks on the CPU "
+                             "when there are fewer cards (dev/test only, "
+                             "never in production)")
     parser.add_argument("--warmup", action="append", default=[],
                         metavar="HxW[:HxW]",
                         help="run a synthetic job of this ON-DISK image "
@@ -231,11 +249,14 @@ def _batchable(job: Dict) -> bool:
                     "styles", "style_weights"))
 
 
-def _run_batch(args, jobs: List[Dict], vgg_params) -> List[Dict]:
+def _run_batch(args, jobs: List[Dict], vgg_params,
+               ranks: Optional["_Ranks"] = None) -> List[Dict]:
+    """One batch group through ``stylize_batch``; with ``ranks`` (rank
+    0's side of ``--data_devices``) over the 'data' mesh when D divides
+    the group, else on this process alone."""
     import torch
 
     from strotss_torch.ops.image import resize_bilinear
-    from strotss_torch.parallel.batch import stylize_batch
     from strotss_torch.programs import warm_init_hw
     from strotss_torch.utils.io import write_image
 
@@ -260,13 +281,20 @@ def _run_batch(args, jobs: List[Dict], vgg_params) -> List[Dict]:
         chw0 = warm_init_hw(contents[0].shape[1], contents[0].shape[2],
                             _config(args, {}))
         inits = [resize_bilinear(init, chw0) for init in inits]
+    group = (torch.cat(contents), torch.cat(styles),
+             torch.cat(inits) if inits else None, alphas, seeds)
+    # undersized groups (end-of-stream flushes) run on this rank alone
+    sharded = ranks is not None and len(jobs) % ranks.size == 0
     t0 = time.perf_counter()
-    imgs, info = stylize_batch(torch.cat(contents), torch.cat(styles),
-                               _config(args, {}), vgg_params=vgg_params,
-                               init_images=(torch.cat(inits) if inits
-                                            else None),
-                               alphas=alphas, pair_seeds=seeds,
-                               device=_device(args))
+    if sharded:
+        ranks.send(("batch", group))
+        try:
+            imgs, info = _stylize_group(args, group, vgg_params, ranks.mesh)
+        except Exception:
+            ranks.restart()
+            raise
+    else:
+        imgs, info = _stylize_group(args, group, vgg_params)
     per = round((time.perf_counter() - t0) / len(jobs), 3)
     scales = info.get("scales") or []
     curve = scales[-1]["curve"] if scales else None  # (n, B, 3)
@@ -275,13 +303,182 @@ def _run_batch(args, jobs: List[Dict], vgg_params) -> List[Dict]:
         write_image(imgs[b], job["output"])
         result = {"output": job["output"], "ok": True,
                   "seconds": per, "batched": len(jobs)}
+        if sharded:
+            result["data_devices"] = ranks.size
         if curve is not None and len(curve):
             result["loss"] = float(curve[-1, b, 0])
         results.append(result)
     return results
 
 
-def _warmup(args, vgg_params) -> None:
+def _stylize_group(args, group, vgg_params, mesh=None):
+    """``stylize_batch`` on a loaded group (contents, styles, inits,
+    alphas, seeds), under ``mesh`` on the rank's own device."""
+    from strotss_torch.parallel.batch import stylize_batch
+
+    contents, styles, inits, alphas, seeds = group
+    return stylize_batch(contents, styles, _config(args, {}),
+                         vgg_params=vgg_params, mesh=mesh,
+                         init_images=inits, alphas=alphas, pair_seeds=seeds,
+                         device=None if mesh is not None else _device(args))
+
+
+#: seconds each collective of serve's ranks may take (inside a group's
+#: ``stylize_batch``: the followers wait for groups on a queue, which has
+#: no timeout)
+_RANK_TIMEOUT = 600.0
+
+
+def _rank_devices(args) -> Optional[List[str]]:
+    """The ranks' devices for ``--data_devices D`` (None when off): the
+    first D cards, or, with fewer (or ``--cpu``) and
+    ``--allow_cpu_devices``, D ranks on the CPU. Raises ValueError on a
+    combination the JAX package refuses."""
+    d = args.data_devices
+    if d <= 0:
+        return None
+    if args.batch <= 1 or args.batch % d != 0:
+        raise ValueError(
+            f"--data_devices {d} requires --batch to be a "
+            f"positive multiple of it (got --batch {args.batch})")
+    import torch
+
+    cards = 0 if args.cpu else torch.cuda.device_count()
+    if cards >= d:
+        return [f"cuda:{k}" for k in range(d)]
+    if not args.allow_cpu_devices:
+        raise ValueError(
+            f"--data_devices {d} needs that many devices, have {cards} CUDA "
+            "card(s) (pass --allow_cpu_devices to run the ranks on the CPU "
+            "for dev/testing)")
+    logger.warning(f"Only {cards} CUDA card(s) present; running the {d} "
+                   "ranks on the CPU instead (--allow_cpu_devices).")
+    return ["cpu"] * d
+
+
+class _Ranks:
+    """Rank 0's side of ``--data_devices``: the follower processes, the
+    'data' mesh, and each follower's inbox, a queue that carries the
+    messages (a loaded group, or the end). Collectives run only inside a
+    group's ``stylize_batch``, so a long job on rank 0 alone keeps no
+    follower waiting in one."""
+
+    def __init__(self, argv: List[str], devices: List[str]):
+        self.argv, self.devices, self.size = argv, devices, len(devices)
+        self._start()
+
+    def _start(self) -> None:
+        import multiprocessing
+
+        import torch
+
+        from strotss_torch.parallel.launch import Ranks, init_rank
+        from strotss_torch.parallel.mesh import make_mesh
+
+        kind = torch.device(self.devices[0]).type
+        # CPU ranks share the host's cores
+        threads = (max(1, torch.get_num_threads() // self.size)
+                   if kind == "cpu" else None)
+        ctx = multiprocessing.get_context("spawn")
+        self._inboxes = [ctx.Queue() for _ in range(1, self.size)]
+        self._procs = Ranks(_follower, self.devices,
+                            args=(self.argv, kind, self._inboxes),
+                            timeout=_RANK_TIMEOUT, threads=threads,
+                            ranks=range(1, self.size))
+        try:
+            init_rank(0, self.devices, self._procs.store_path,
+                      timeout=_RANK_TIMEOUT, threads=threads)
+            self.mesh = make_mesh((self.size,), ("data",), devices=kind)
+        except BaseException:
+            self._stop()
+            raise
+        logger.info(f"--data_devices {self.size}: ranks on {self.devices} "
+                    f"over {self._procs.backend}.")
+
+    def send(self, message) -> None:
+        """``message`` to every follower, pickled once (tensors as bytes,
+        not shared memory)."""
+        data = pickle.dumps(message)
+        for inbox in self._inboxes:
+            inbox.put(data)
+
+    def check(self) -> None:
+        """Raise if a follower's process has ended."""
+        self._procs.check()
+
+    def restart(self) -> None:
+        """After a group that raised: the ranks may have stopped at
+        different collectives, so the process group is not used again.
+        The followers are stopped (a follower that had ended raises
+        instead) and fresh ones start."""
+        self.check()
+        logger.warning("--data_devices: a group failed; starting the "
+                       "follower ranks anew.")
+        self._stop()
+        self._start()
+
+    def _stop(self) -> None:
+        import torch.distributed as dist
+
+        try:
+            self._procs.close()
+        finally:
+            for inbox in self._inboxes:
+                inbox.close()
+                inbox.cancel_join_thread()
+            if dist.is_initialized():
+                dist.destroy_process_group()
+
+    def close(self, clean: bool) -> None:
+        """End the followers: a 'stop' message and their exit when
+        ``clean``, else they are stopped. Then leave the process group."""
+        try:
+            if clean:
+                self.send(("stop", None))
+                self._procs.wait()
+        finally:
+            self._stop()
+
+
+def _follower(argv: List[str], device_type: str, inboxes) -> None:
+    """A follower rank of ``--data_devices``: the same flags as rank 0,
+    the same mesh; runs each group rank 0 sends to its inbox until told
+    to stop, or until rank 0's process is gone. A SIGTERM is rank 0's to
+    drain."""
+    import multiprocessing
+    import queue
+
+    import torch.distributed as dist
+
+    from strotss_torch.models.weights import load_vgg_params
+    from strotss_torch.parallel.mesh import make_mesh
+    from strotss_torch.utils.logging import route_to_stderr
+
+    signal.signal(signal.SIGTERM, signal.SIG_IGN)
+    route_to_stderr()
+    args = build_parser().parse_args(argv)
+    mesh = make_mesh((dist.get_world_size(),), ("data",),
+                     devices=device_type)
+    vgg_params = load_vgg_params("16", args.use_keras_weight)
+    inbox = inboxes[dist.get_rank() - 1]
+    parent = multiprocessing.parent_process()
+    while True:
+        try:
+            kind, group = pickle.loads(inbox.get(timeout=1.0))
+        except queue.Empty:
+            if parent is not None and not parent.is_alive():
+                return
+            continue
+        if kind == "stop":
+            return
+        try:
+            _stylize_group(args, group, vgg_params, mesh)
+        except Exception as e:  # rank 0 starts fresh ranks after it
+            logger.error(f"data_devices rank {dist.get_rank()}: "
+                         f"{type(e).__name__}: {e}")
+
+
+def _warmup(args, vgg_params, ranks=None) -> None:
     """One synthetic job per ``--warmup HxW`` bucket through the serving
     path, its output discarded. With ``--batch N`` a batch of N too, and
     always the single path (jobs that do not batch, flushes of one, the
@@ -321,7 +518,7 @@ def _warmup(args, vgg_params) -> None:
             t0 = time.perf_counter()
             if args.batch > 1:
                 _run_batch(args, [dict(job) for _ in range(args.batch)],
-                           vgg_params)
+                           vgg_params, ranks)
             _run_single(args, job, vgg_params)
             logger.info(f"Warmed shape bucket {spec} in "
                         f"{time.perf_counter() - t0:.1f}s.")
@@ -430,7 +627,8 @@ class _LineReader:
 
 def _job_lines(path: str, should_stop=lambda: False):
     """Yield job lines; ends at EOF or when ``should_stop()`` turns true
-    (checked during every blocking wait and between lines)."""
+    (checked during every blocking wait, at least every 0.25 s, and
+    between lines)."""
     stream = sys.stdin if path == "-" else open(path)
     reader = _LineReader(stream)
     try:
@@ -481,25 +679,38 @@ def main(argv=None) -> int:
     from strotss_torch.utils.logging import route_to_stderr
 
     route_to_stderr()
-    if args.data_devices > 0:
-        logger.error(
-            f"--data_devices {args.data_devices}: sharding batches over "
-            "several devices is not ported to strotss_torch yet (ROADMAP.md "
-            "Queue 1 item 13); drop the flag to serve on one device")
-        return 2
 
     from strotss_torch.api import resolve_device
-    from strotss_torch.models.weights import load_vgg_params
 
     try:
+        devices = _rank_devices(args)
         resolve_device(_device(args))
     except (RuntimeError, ValueError) as e:
         logger.error(str(e))
         return 2
+    ranks = None
+    if devices is not None:
+        ranks = _Ranks(list(sys.argv[1:] if argv is None else argv),
+                       devices)
+    clean = False
+    try:
+        rc = _serve(args, ranks)
+        clean = True
+        return rc
+    finally:
+        if ranks is not None:
+            ranks.close(clean)
+
+
+def _serve(args, ranks: Optional[_Ranks]) -> int:
+    """The serving loop (``main`` after its checks); ``ranks``: rank 0's
+    side of ``--data_devices``."""
+    from strotss_torch.models.weights import load_vgg_params
+
     vgg_params = load_vgg_params("16", args.use_keras_weight)  # all jobs
 
     if args.warmup:
-        _warmup(args, vgg_params)
+        _warmup(args, vgg_params, ranks)
 
     out = sys.stdout if args.results == "-" else open(args.results, "w")
 
@@ -510,14 +721,16 @@ def main(argv=None) -> int:
     def run(jobs: List[Dict]):
         if len(jobs) > 1:
             try:
-                for r in _run_batch(args, jobs, vgg_params):
+                for r in _run_batch(args, jobs, vgg_params, ranks):
                     emit(r)
                 return
             except Exception:
                 # one bad input fails the whole batch: retry the jobs
                 # singly, so the good ones complete and only the bad one
-                # emits its (precise) error
-                pass
+                # emits its (precise) error; a follower's death ends serve
+                # (a follower that had ended made the restart raise)
+                if ranks is not None:
+                    ranks.check()
         for job in jobs:
             try:
                 emit(_run_single(args, job, vgg_params))
@@ -530,10 +743,15 @@ def main(argv=None) -> int:
     pending: List[Dict] = []
     pending_sig = None
     sig_state: Dict = {"draining": False}
+
+    def should_stop() -> bool:
+        if ranks is not None:  # a follower's death ends serve
+            ranks.check()
+        return sig_state["draining"]
+
     prev_handler = _install_sigterm(sig_state)
     try:
-        for line in _job_lines(args.jobs,
-                               should_stop=lambda: sig_state["draining"]):
+        for line in _job_lines(args.jobs, should_stop=should_stop):
             try:
                 job = json.loads(line)
                 if not isinstance(job, dict):

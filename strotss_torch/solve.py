@@ -11,7 +11,11 @@ its own style targets and coordinates each step, and the loss averages
 the regions), a blend of several styles (the style target mixes samples
 of each style in proportion to its weight), a warm start from an image,
 skipped coarse scales (``start_level``) and checkpoints that an
-interrupted run resumes from.
+interrupted run resumes from. Under a mesh every rank runs the loop, and
+``cfg.shard_samples`` splits the REMD terms' style samples over the
+mesh's 'sample' axis. Every rank then holds a replica of the pyramid: the
+run takes PyTorch's deterministic algorithms, and the replicas are
+checked to agree bit for bit after each scale (:func:`check_replicas`).
 """
 
 from __future__ import annotations
@@ -19,10 +23,11 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from strotss_torch.config import StrotssConfig
 from strotss_torch.models.vgg import VGG
@@ -100,12 +105,59 @@ def scale_generators(seed: int, scale_index: int,
     return gens[0], gens[1]
 
 
-def _unported(cfg: StrotssConfig) -> None:
-    for field in ("shard_samples", "shard_spatial"):
-        if getattr(cfg, field):
-            raise NotImplementedError(
-                f"StrotssConfig.{field} is not ported to strotss_torch yet "
-                "(ROADMAP.md Queue 1 item 13)")
+def sample_group(cfg: StrotssConfig, mesh, entry: str, example: str):
+    """The up-front mesh contracts of ``entry`` (``strotss_tpu/solve.py:
+    226-242``), and the 'sample' process group under ``cfg.shard_samples``
+    (else None). ``shard_spatial`` and ``shard_samples`` with
+    ``use_sinkhorn`` are not ported (ROADMAP.md Queue 1 items 16, 17)."""
+    if cfg.shard_spatial:
+        raise NotImplementedError(
+            "StrotssConfig.shard_spatial is not ported to strotss_torch yet "
+            "(ROADMAP.md Queue 1 item 16): it needs halo exchanges through "
+            "the VGG stack")
+    if not cfg.shard_samples:
+        return None
+    if mesh is None or "sample" not in (mesh.mesh_dim_names or ()):
+        # a silent single-device run would betray the explicit request
+        raise ValueError(
+            "cfg.shard_samples needs a mesh with a 'sample' axis — pass "
+            f"{entry}(..., mesh=make_mesh({example}))")
+    if cfg.use_sinkhorn:
+        raise NotImplementedError(
+            "StrotssConfig.shard_samples with use_sinkhorn is not ported to "
+            "strotss_torch yet (ROADMAP.md Queue 1 item 17): shard_samples "
+            "splits REMD's style samples only")
+    return mesh.get_group("sample")
+
+
+def check_replicas(pyramid: Sequence[torch.Tensor], group,
+                   scale: int) -> None:
+    """The ranks of ``group`` hold replicas of one pyramid (every rank of
+    ``stylize_single``'s mesh; each 'sample' group of a batch): raise on
+    every one of them when the replicas' bits differ after ``scale``, so
+    that a drift fails the run instead of passing silently. Nothing to
+    check for ``None`` or a group of one."""
+    if group is None or dist.get_world_size(group) == 1:
+        return
+    flat = torch.cat([p.detach().reshape(-1) for p in pyramid])
+    first = flat.clone()
+    dist.broadcast(first, dist.get_global_rank(group, 0), group=group)
+    differ = torch.ne(first.view(torch.int32),
+                      flat.view(torch.int32)).any().to(torch.int32)[None]
+    dist.all_reduce(differ, dist.ReduceOp.MAX, group=group)
+    if differ.item():
+        raise RuntimeError(
+            f"the ranks' replicas of the pyramid differ after scale {scale}:"
+            " a computation on the mesh is not bitwise repeatable")
+
+
+def checkpoint_sync(mesh, cfg: StrotssConfig) -> None:
+    """Under a mesh with checkpoints: every rank waits here, so that rank
+    0, the only writer, never replaces the state another rank has still
+    to read, and a callback that stops the run after a chunk finds the
+    chunk's state written."""
+    if mesh is not None and cfg.checkpoint_dir:
+        dist.barrier()
 
 
 def _coords(coords_source, gen, i, kind, step, hw, n, device,
@@ -214,6 +266,7 @@ def stylize_single(
     style_masks: Optional[torch.Tensor] = None,
     init_image: Optional[torch.Tensor] = None,
     style_weights=None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Dict]:
     """Full coarse-to-fine stylization of one (content, style) pair.
 
@@ -239,8 +292,19 @@ def stylize_single(
     checkpoint of the same configuration there resumes from it.
     ``coords_source`` replaces the sampling generators (tests replay the
     JAX package's coordinates).
+
+    ``mesh`` (:func:`strotss_torch.parallel.make_mesh`): every rank of it
+    calls with the same inputs, on its own device, and returns the whole
+    result. Under ``cfg.shard_samples`` the REMD terms split the style
+    samples over its 'sample' axis; every rank draws the same coordinates
+    from the same seeded generators, with no traffic. Only rank 0 writes
+    checkpoints and calls ``snapshot_cb``; every rank calls
+    ``progress_cb``.
     """
-    _unported(cfg)
+    group = sample_group(cfg, mesh, "stylize", "(N,), ('sample',)")
+    lead = mesh is None or mesh.get_rank() == 0
+    # under a mesh every rank holds the whole pyramid
+    replicas = None if mesh is None else dist.group.WORLD
     device = content.device
     masked = content_masks is not None
     style, style_ns, weights = _blend_plan(style, style_weights, cfg, masked)
@@ -274,7 +338,7 @@ def stylize_single(
                 f"range for levels={cfg.levels} — config mismatch with the "
                 "saved run. Delete the checkpoint directory to start fresh.")
 
-    with precision(spec):
+    with precision(spec, deterministic=mesh is not None):
         vgg = VGG({k: {n: t.to(device) for n, t in p.items()}
                    for k, p in vgg_params.items()},
                   taps=spec.taps, vgg_type=spec.vgg_type,
@@ -327,6 +391,7 @@ def stylize_single(
                 alpha = resume["alpha"]
                 done = min(resume["done_steps"], cfg.max_iter)
                 resume = None
+                checkpoint_sync(mesh, cfg)
 
             curve: List[torch.Tensor] = []
             ran = done < cfg.max_iter
@@ -350,19 +415,20 @@ def stylize_single(
                 curve.append(optimization_steps(
                     spec, k, vgg, content_feats, style_targets,
                     style_moments, alpha, pyramid, opt,
-                    lambda t, d=done: coords_fn(d + t)))
+                    lambda t, d=done: coords_fn(d + t), group))
                 image = None
                 if cfg.checkpoint_dir or (snapshot_cb is not None
                                           and cfg.save_every > 0):
                     with torch.no_grad():
                         stylized = fold_laplacian_pyramid(pyramid)
                         image = postprocess(stylized)
-                if cfg.checkpoint_dir:
+                if cfg.checkpoint_dir and lead:
                     ckpt.save_state(
                         cfg.checkpoint_dir, i, done + k, alpha,
                         _state(pyramid, opt, step_gen),
                         fingerprint=fingerprint,
                         extras={"stylized": stylized, "image_u8": image})
+                checkpoint_sync(mesh, cfg)
                 if progress_cb is not None:
                     block = curve[-1].cpu().numpy()
                     for j in range(k):
@@ -371,9 +437,11 @@ def stylize_single(
                                      "loss_c": float(block[j, 1]),
                                      "loss_s": float(block[j, 2])})
                 done += k
-                if snapshot_cb is not None and cfg.save_every > 0 and (
-                        done % cfg.save_every == 0 or done == cfg.max_iter):
+                if (lead and snapshot_cb is not None and cfg.save_every > 0
+                        and (done % cfg.save_every == 0
+                             or done == cfg.max_iter)):
                     snapshot_cb(scl, done, image)
+            check_replicas(pyramid, replicas, i)
             kept = ({} if ran or not cfg.checkpoint_dir
                     else ckpt.restore_extras(cfg.checkpoint_dir))
             if "stylized" in kept and "image_u8" in kept:
@@ -385,6 +453,7 @@ def stylize_single(
                 with torch.no_grad():
                     stylized = fold_laplacian_pyramid(pyramid)
                     final_u8 = postprocess(stylized)
+            checkpoint_sync(mesh, cfg)
             curve_np = (torch.cat(curve).cpu().numpy() if curve
                         else np.zeros((0, 3), np.float32))
             entry = {"scale": scl, "alpha": alpha, "curve": curve_np,

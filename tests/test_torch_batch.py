@@ -260,13 +260,45 @@ def test_shard_spatial_raises_the_jax_error(jparams, params):
     assert str(got.value) == str(want.value)
 
 
-@pytest.mark.parametrize("what", ["mesh", "shard_samples"])
-def test_multi_device_options_are_unported(params, what):
+class _Mesh:
+    """What the batch's mesh contracts read of a mesh: its axes' names
+    and sizes."""
+
+    def __init__(self, names, size):
+        self.mesh_dim_names, self._size = names, size
+
+    def size(self, dim):
+        return self._size
+
+
+@pytest.mark.parametrize("what", ["mesh", "shard_samples", "indivisible"])
+def test_multi_device_options_are_unported(params, jparams, what):
+    """The mesh contracts of ``strotss_tpu/parallel/batch.py:303-321``: a
+    mesh without a 'data' axis and ``shard_samples`` without a 'sample'
+    axis are refused with the JAX package's errors, and a batch that the
+    'data' axis does not divide (JAX fails inside ``NamedSharding``)
+    with the port's own."""
+    from strotss_tpu.parallel.mesh import make_mesh as jax_make_mesh
+
     cfg = strotss_torch.StrotssConfig(shard_samples=what == "shard_samples",
                                       **TINY)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+    if what == "indivisible":
+        with pytest.raises(ValueError, match=r"splits the 2 pairs over the "
+                           r"mesh's 'data' axis of size 3"):
+            stylize_batch(_C, _S, cfg, params, device="cpu",
+                          mesh=_Mesh(("data",), 3))
+        return
+    jmesh = (jax_make_mesh((8,), ("sample",), devices=jax.devices("cpu")[:8])
+             if what == "mesh" else None)
+    with pytest.raises(ValueError) as want:
+        jax_stylize_batch(jnp.asarray(_C), jnp.asarray(_S),
+                          JaxConfig(**dict(TINY, shard_samples=cfg
+                                           .shard_samples)),
+                          jparams, mesh=jmesh)
+    with pytest.raises(ValueError) as got:
         stylize_batch(_C, _S, cfg, params, device="cpu",
-                      mesh=object() if what == "mesh" else None)
+                      mesh=_Mesh(("sample",), 8) if what == "mesh" else None)
+    assert str(got.value) == str(want.value)
 
 
 class Interrupt(Exception):

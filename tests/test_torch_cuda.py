@@ -685,3 +685,37 @@ def test_batch_launches_on_card(cuda_device):
             random_params("16", 0))
         np.testing.assert_allclose(info["scales"][0]["curve"][0, b],
                                    one["scales"][0]["curve"][0], rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [2, 3])
+def test_sharded_remd_on_card(cuda_device, p):
+    """The sample-sharded REMD (``strotss_torch.parallel.transport``) over
+    p ranks sharing the card over gloo, each running K1 on its shard of
+    y's rows (at p = 3, 1000 rows: 334/333/333): the value to rtol 1e-5
+    and both gradients to 1e-4 of max|g| of the unsharded K1 REMD on this
+    process, one K1 launch a rank. Ranks come from the launcher; their
+    function is in ``tests/torch_ranks.py``."""
+    import torch_ranks as R
+    from strotss_torch.parallel.launch import launch
+
+    m = 1000 if p == 3 else 512
+    rng = np.random.default_rng(p)
+    cases = [(rng.standard_normal((n, c)).astype(np.float32),
+              rng.standard_normal((mm, c)).astype(np.float32), dist)
+             for dist, c in (("cosine", 2179), ("l2", 64), ("both", 3))
+             for n, mm in ((3 * m // 2, m), (m // 2, 2 * m))]
+    ranks = launch(R.sharded_remd, ["cuda:0"] * p, args=(cases, "cuda:0"),
+                   timeout=120)
+    for k, (x, y, dist) in enumerate(cases):
+        xt = torch.tensor(x, device=cuda_device, requires_grad=True)
+        yt = torch.tensor(y, device=cuda_device, requires_grad=True)
+        ref = losses.relaxed_emd(xt, yt, dist, impl="kernel")
+        gx, gy = torch.autograd.grad(ref, [xt, yt])
+        for value, dx, dy, launches in (r[k] for r in ranks):
+            assert launches == 1
+            np.testing.assert_allclose(value, ref.item(), rtol=1e-5)
+            for g, want in ((dx, gx), (dy, gy)):
+                want = want.cpu().numpy()
+                np.testing.assert_allclose(
+                    g, want, rtol=0, atol=1e-4 * np.abs(want).max())

@@ -143,11 +143,19 @@ def test_api_rejects_unported_paths(monkeypatch):
 
 
 def test_api_sharding_still_unported():
+    """``shard_spatial`` is not ported (ROADMAP.md Queue 1 item 16);
+    ``shard_samples`` without a mesh is refused with the JAX package's
+    error (``strotss_tpu/solve.py:237-250``)."""
     img = np.zeros((1, 8, 8, 3), np.float32)
-    for field in ("shard_samples", "shard_spatial"):
-        cfg = strotss_torch.StrotssConfig(**{field: True})
-        with pytest.raises(NotImplementedError, match="item 13"):
-            strotss_torch.stylize(img, img, cfg, device="cpu")
+    cfg = strotss_torch.StrotssConfig(shard_spatial=True)
+    with pytest.raises(NotImplementedError, match="item 16"):
+        strotss_torch.stylize(img, img, cfg, device="cpu")
+    cfg = strotss_torch.StrotssConfig(shard_samples=True)
+    with pytest.raises(ValueError) as got:
+        strotss_torch.stylize(img, img, cfg, device="cpu")
+    assert str(got.value) == (
+        "cfg.shard_samples needs a mesh with a 'sample' axis — pass "
+        "stylize(..., mesh=make_mesh((N,), ('sample',)))")
 
 
 def test_cli_runs_on_cpu(tmp_path):
@@ -170,7 +178,9 @@ def test_no_jax_in_the_port_at_runtime():
     code = ("import sys, strotss_torch, strotss_torch.cli, "
             "strotss_torch.ops.kernels.remd, strotss_torch.ops.kernels."
             "selfsim, strotss_torch.ops.kernels.sinkhorn, "
-            "strotss_torch.parallel.batch, strotss_torch.serve, chip_smoke\n"
+            "strotss_torch.parallel.batch, strotss_torch.parallel.launch, "
+            "strotss_torch.parallel.transport, strotss_torch.serve, "
+            "chip_smoke\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'optax', 'strotss_tpu')]\n"
             "print(bad)\n")

@@ -299,10 +299,15 @@ def test_serve_sigterm_mid_job_finishes_job_then_exits(tmp_path, rng,
 
 @pytest.mark.parametrize("extra", [["--batch", "2", "--data_devices", "2"],
                                    ["--data_devices", "1",
+                                    "--allow_cpu_devices"],
+                                   ["--batch", "4", "--data_devices", "3",
                                     "--allow_cpu_devices"]])
 def test_serve_data_devices_is_refused(tmp_path, extra):
-    """Sharding batches over devices is ROADMAP.md Queue 1 item 13: exit
-    code 2, the JAX package's code for a mesh it cannot build."""
+    """The JAX package's ``--data_devices`` validations
+    (``strotss_tpu/serve.py:338-377``, ``tests/test_serve.py:350-358``),
+    exit code 2: more ranks than devices without ``--allow_cpu_devices``
+    (``--cpu``: no card), batching off, and a ``--batch`` that is not a
+    multiple of D."""
     jp = str(tmp_path / "empty.jsonl")
     open(jp, "w").close()
     assert serve.main(["--jobs", jp, "--cpu", *extra]) == 2
