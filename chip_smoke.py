@@ -29,11 +29,14 @@ and runs a masked batch with a padded region; the serve phase runs
 warm job). The multi phase starts ranks through
 ``strotss_torch.parallel.launch``: two sharing the card over gloo hold
 the sample-sharded REMD (K1 on each rank's shard) bit for bit to one
-rank, run a full-width ``shard_samples`` stylization step by step against
-the unsharded step, and a batch over a 'data' mesh bit for bit against
-one rank on a world-size-1 NCCL mesh; serve runs with ``--data_devices
-1``. The kernel phase also holds K3a and K3b on a batch of images
-bit for bit to one-image launches. The features phase blends a second
+rank, run full-width ``shard_samples`` and ``shard_spatial``
+stylizations step by step against the unsharded step, a 2048 px
+``shard_spatial`` step against one rank's peak memory, and a batch over
+a 'data' mesh bit for bit against one rank on a world-size-1 NCCL mesh;
+serve runs with ``--data_devices 1``; K3a and K3b are held on the
+'spatial' slabs of one image to the whole image's launches. The kernel
+phase also holds K3a and K3b on a batch of images bit for bit to
+one-image launches. The features phase blends a second
 style with checkpoints, resumes from a checkpoint copied aside, refines
 the default run's result at ``start_level=3`` without and with
 ``remat``, traces the CLI with ``--profile_dir`` and tests the law of
@@ -2134,11 +2137,18 @@ def _rank_collectives():
          lambda: dist.all_gather_into_tensor(
              out[0], torch.full((3,), float(r), device="cuda")),
          lambda: [float(k) for k in range(p) for _ in range(3)]),
+        # the halo exchanges of shard_spatial move bytes
+        ("all_gather_into_tensor (uint8)",
+         lambda: dist.all_gather_into_tensor(
+             out[0], torch.full((5,), r + 7, dtype=torch.uint8,
+                                device="cuda")),
+         lambda: [k + 7 for k in range(p) for _ in range(5)]),
         ("all_reduce", lambda: dist.all_reduce(out[0]),
          lambda: [p * (p + 1) / 2.0] * 4),
         ("broadcast", lambda: dist.broadcast(out[0], 0),
          lambda: [0.0] * 2))
     starts = (torch.empty(3 * p, device="cuda"),
+              torch.empty(5 * p, dtype=torch.uint8, device="cuda"),
               torch.full((4,), r + 1.0, device="cuda"),
               torch.full((2,), float(r), device="cuda"))
     for (name, run, want), start in zip(probes, starts):
@@ -2334,9 +2344,182 @@ def _rank_batch(contents, styles, steps, seeds, alphas, halves=False):
     return out
 
 
+def check_block1_slabs(h, w, seed):
+    """(f) K3a and K3b on the 'spatial' slabs of an (h, w) image split in
+    two (units of 16 rows), in this process: each slab is the rank's rows
+    with 4 extra a side (``Slab.fused_block1``'s extended slab). K3a's taps
+    on the slab's own rows against the whole image's launch, and K3b's dx
+    on its own rows from the whole image's cotangents on 2 rows more a
+    side (what the rank fetches from its neighbours), the slabs' rows put
+    together, against the whole image's K3b. Returns the distances (of
+    max|ref|) and whether each is bit for bit."""
+    import torch
+
+    from strotss_torch.models.weights import random_params
+    from strotss_torch.ops.kernels import block1 as B
+    from strotss_torch.parallel.spatial import EXTRA, slab_bounds
+
+    p = random_params("16", seed)
+    k1 = p["block1_conv1"]["kernel"].cuda()
+    k2 = p["block1_conv2"]["kernel"].cuda()
+    b1 = 0.1 * _inputs(seed + 1, (64,))
+    b2 = 0.1 * _inputs(seed + 2, (64,))
+    x = _inputs(seed + 3, (1, h, w, 3))
+    g1 = _inputs(seed + 4, (1, h, w, 64))
+    g2 = _inputs(seed + 5, (1, h, w, 64))
+    t1, t2 = B.block1_fwd(x, k1, b1, k2, b2)
+    dx = B.block1_bwd(t1, t2, g1, g2, k1, k2)
+    s1, s2, sdx = torch.empty_like(t1), torch.empty_like(t2), \
+        torch.zeros_like(dx)
+    bounds = slab_bounds(h, 2, 4)
+    for s, e in bounds:
+        lo, hi = max(0, s - EXTRA), min(h, e + EXTRA)
+        e1, e2 = B.block1_fwd(x[:, lo:hi].contiguous(), k1, b1, k2, b2)
+        s1[:, s:e], s2[:, s:e] = e1[:, s - lo:e - lo], e2[:, s - lo:e - lo]
+        c1, c2 = torch.zeros_like(e1), torch.zeros_like(e2)
+        a, b = max(0, s - 2), min(h, e + 2)
+        c1[:, a - lo:b - lo], c2[:, a - lo:b - lo] = g1[:, a:b], g2[:, a:b]
+        sdx[:, s:e] = B.block1_bwd(e1, e2, c1, c2, k1, k2)[:, s - lo:e - lo]
+    torch.cuda.synchronize()
+    out = {"shape": [h, w], "rows": bounds,
+           "tap1_err": _grad_err(s1, t1), "tap2_err": _grad_err(s2, t2),
+           "dx_err": _grad_err(sdx, dx),
+           "bitwise": {"tap1": torch.equal(s1, t1),
+                       "tap2": torch.equal(s2, t2),
+                       "dx": torch.equal(sdx, dx)}}
+    check(out["tap1_err"] <= 1e-5 and out["tap2_err"] <= 1e-3
+          and out["dx_err"] <= 1e-3,
+          f"multi (f): K3 on slabs against the whole image: {out}")
+    return out
+
+
+def _rank_spatial(content, style, steps, **cfg_kw):
+    """(g) ``stylize(mesh=...)`` under ``shard_spatial`` at full width on a
+    'spatial' mesh of every rank: every step's (loss, loss_c, loss_s) and
+    the pyramid's gradient held to the unsharded step's from the same
+    pyramid and coordinates (those comparison launches are taken back off
+    the counts), a digest of the pyramid after each scale, and this
+    rank's launches of each kernel. Then the same run again, timed
+    alone."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    import strotss_torch
+    from strotss_torch import programs, solve
+    from strotss_torch.ops.image import fold_laplacian_pyramid
+    from strotss_torch.parallel import make_mesh
+
+    mesh = make_mesh((dist.get_world_size(),), ("spatial",), devices="cuda")
+    cfg = strotss_torch.StrotssConfig(max_iter=steps, shard_spatial=True,
+                                      **cfg_kw)
+    counted = _counted()
+    held, digests = [], []
+    run_steps = solve.optimization_steps
+
+    def grads(spec, vgg, feats, pyramid, args, coords, spatial, group):
+        leaves = [p.detach().clone().requires_grad_(True) for p in pyramid]
+        pred = programs.extract_for_grad(
+            spec, vgg, fold_laplacian_pyramid(leaves), spatial)
+        loss = programs.step_losses(spec, feats, pred, *args, coords,
+                                    sample_group=group)
+        g = torch.autograd.grad(loss[0], leaves)
+        return (torch.stack(loss).detach(),
+                torch.cat([t.reshape(-1) for t in g]))
+
+    def held_steps(spec, n, vgg, content_feats, targets, moments, alpha,
+                   pyramid, opt, coords_fn, group=None, spatial=None):
+        saved = {name: fn.launches for name, fn in counted.items()}
+        whole = programs.extract_hypercolumn(vgg, content_feats.image)
+        rows = []
+        for t in range(n):
+            coords = coords_fn(t)
+            args = (targets, moments, alpha)
+            got, g = grads(spec, vgg, content_feats, pyramid, args, coords,
+                           spatial, group)
+            ref, gu = grads(spec, vgg, whole, pyramid, args, coords, None,
+                            None)
+            held.append((got, ref, float((g - gu).abs().max()
+                                         / gu.abs().max())))
+            for name, fn in counted.items():
+                fn.launches = saved[name]
+            rows.append(run_steps(spec, 1, vgg, content_feats, targets,
+                                  moments, alpha, pyramid, opt,
+                                  lambda s, c=coords: c, group, spatial))
+            saved = {name: fn.launches for name, fn in counted.items()}
+        digests.append(hashlib.sha256(b"".join(
+            p.detach().cpu().numpy().tobytes() for p in pyramid)).hexdigest())
+        return torch.cat(rows)
+
+    solve.optimization_steps = held_steps
+    try:
+        for fn in counted.values():
+            fn.launches = 0
+        _, info = strotss_torch.stylize(content, style, cfg, mesh=mesh)
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in counted.items()}
+    finally:
+        solve.optimization_steps = run_steps
+    got = torch.stack([h[0] for h in held]).cpu().numpy()
+    ref = torch.stack([h[1] for h in held]).cpu().numpy()
+    errs = (np.abs(got - ref) / np.abs(ref)).max(axis=0).tolist()
+    falls = [bool(sc["curve"][-1, 0] < sc["curve"][0, 0])
+             for sc in info["scales"]]
+    dist.barrier()
+    t0 = time.perf_counter()
+    strotss_torch.stylize(content, style, cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return {"steps": len(held), "loss_rel_err": errs,
+            "grad_err": max(h[2] for h in held),
+            "grad_errs": [h[2] for h in held],
+            "pyramid_digests": digests, "falls": falls,
+            "launches": launches, "seconds": seconds,
+            "seconds_per_step": seconds / (cfg.levels * steps)}
+
+
+def _rank_spatial_memory(content, style):
+    """(h) One step at the 2048 px scale (content 1536x2048 from
+    ``levels=6, start_level=5, max_iter=1`` with a warm ``init_image``):
+    this rank's peak allocated memory under ``shard_spatial`` on every
+    rank, and on rank 0 the same step unsharded, one rank alone (the
+    other waits). Returns (sharded peak, one-rank peak or None, the
+    sharded run's last loss, the one-rank run's)."""
+    import torch
+    import torch.distributed as dist
+
+    import strotss_torch
+    from strotss_torch.parallel import make_mesh
+
+    mesh = make_mesh((dist.get_world_size(),), ("spatial",), devices="cuda")
+    kw = dict(levels=6, start_level=5, max_iter=1)
+    out = {}
+    for name, cfg, m in (
+            ("sharded", strotss_torch.StrotssConfig(shard_spatial=True, **kw),
+             mesh),
+            ("one_rank", strotss_torch.StrotssConfig(**kw), None)):
+        dist.barrier()
+        if m is None and dist.get_rank() != 0:
+            continue
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _, info = strotss_torch.stylize(content, style, cfg, mesh=m,
+                                        init_image=content)
+        torch.cuda.synchronize()
+        out[name] = {"peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                     "before_gib": base / 2 ** 30,
+                     "loss": float(info["scales"][-1]["curve"][-1, 0]),
+                     "hw": list(info["stylized"].shape[1:3])}
+    dist.barrier()
+    return out
+
+
 def _rank_pair(remd_cases, content, style, contents, styles, steps, seeds,
                alphas):
-    """One of two ranks sharing the card over gloo: (a), (b), (c), (d)."""
+    """One of two ranks sharing the card over gloo: (a), (b), (c), (d),
+    (g), (h)."""
     import torch.distributed as dist
 
     out = {"backend": dist.get_backend(), "collectives": _rank_collectives()}
@@ -2345,6 +2528,11 @@ def _rank_pair(remd_cases, content, style, contents, styles, steps, seeds,
     out["remd"] = _rank_remd(remd_cases)
     out["shard_samples"] = _rank_shard_samples(content, style, steps)
     out["batch"] = _rank_batch(contents, styles, steps, seeds, alphas)
+    out["spatial"] = _rank_spatial(content, style, steps)
+    # float32 (block1 on F.conv2d, blocks 2-5 in float32): the split itself
+    out["spatial_f32"] = _rank_spatial(content, style, 2,
+                                       compute_dtype="float32")
+    out["spatial_memory"] = _rank_spatial_memory(content, style)
     return out
 
 
@@ -2375,6 +2563,9 @@ def _rank_one(content, style, contents, styles, steps, seeds, alphas):
         cfg.levels * steps)
     out["batch"] = _rank_batch(contents, styles, steps, seeds, alphas,
                                halves=True)
+    # shard_spatial on a world of one, every exchange over NCCL: the same
+    # code on the whole image, held to the unsharded step
+    out["spatial"] = _rank_spatial(content, style, 2)
     return out
 
 
@@ -2457,9 +2648,20 @@ def phase_multi():
     bit for bit equal after each scale; (d) 4 pairs at full width (4 x 10
     steps) on a 2-rank 'data' mesh, bit for bit the one rank's runs of
     the same two halves (both sides under the deterministic switches),
-    and its distance from the one rank's 4-pair batch; (e) serve over NCCL at ``--data_devices 1``. Two ranks on
-    one card with gloo staging through the host say nothing of scaling
-    across cards. Returns rank 0's launches in (c)."""
+    and its distance from the one rank's 4-pair batch; (e) serve over
+    NCCL at ``--data_devices 1``; (f) K3a and K3b on the two 'spatial'
+    slabs of a 384x512 image against the whole image's launches (tap1 to
+    1e-5 of max, tap2 and dx 1e-3); (g) a full-width ``shard_spatial``
+    run (4 scales x 10 steps) on both ranks: every step's losses within
+    rtol 1e-3 and the pyramid's gradient within 5e-2 of max|g| of the
+    unsharded step from the same state (bf16; float32, 4 x 2 steps: 1e-5
+    and 1e-5), both ranks' pyramids bit for bit equal after each scale,
+    80/40/40/48/40/0/0 launches a rank, and 2 steps a scale on a
+    world-size-1 'spatial' mesh over NCCL, held the same way; (h) one
+    step at the 2048 px scale: each sharded rank's peak memory below
+    0.75x the one-rank peak. Two ranks on one card with gloo staging
+    through the host say nothing of scaling across cards. Returns rank
+    0's launches in (c) and in (g)."""
     from strotss_torch.parallel.launch import launch
 
     t0 = time.perf_counter()
@@ -2472,6 +2674,7 @@ def phase_multi():
     seeds, alphas = [1001, 1008, 1015, 1022], [0.5, 1.0, 2.0, 4.0]
     remd_cases = [(1024, 1024, 2179, "cosine", 101),
                   (1024, 1024, 3, "both", 103)]
+    slabs = check_block1_slabs(384, 512, 111)
     pair = launch(_rank_pair, ["cuda:0", "cuda:0"],
                   args=(remd_cases, content, style, contents, styles, steps,
                         seeds, alphas), timeout=600)
@@ -2544,6 +2747,48 @@ def phase_multi():
                                        ref["stylized"]))}
     check(bool(np.all(np.isfinite(ref["stylized"]))),
           "multi (d): non-finite one-rank batch")
+    # (g). In bf16 the pyramid gradient is 5e-2 of max|g| from the
+    # unsharded step's: cuDNN rounds blocks 2-5's bf16 convolutions by
+    # shape, and the one-rank 'spatial' mesh (the same code on the whole
+    # image, no split) is itself up to 1.9e-2 away (PERF.md, PR 15). In
+    # float32 the split is held to 1e-5.
+    sp = [r["spatial"] for r in pair]
+    check(all(s["steps"] == 4 * steps for s in sp),
+          f"multi (g): held {[s['steps'] for s in sp]} steps")
+    err = max(max(s["loss_rel_err"]) for s in sp)
+    check(err <= 1e-3, f"multi (g): spatial against unsharded steps {err}")
+    gerr = max(s["grad_err"] for s in sp)
+    check(gerr <= 5e-2, f"multi (g): spatial against unsharded pyramid "
+          f"gradients {gerr} of max|g|")
+    f32 = [r["spatial_f32"] for r in pair]
+    check(all(max(s["loss_rel_err"]) <= 1e-5 and s["grad_err"] <= 1e-5
+              for s in f32),
+          f"multi (g): float32 spatial against unsharded steps "
+          f"{[(s['loss_rel_err'], s['grad_err']) for s in f32]}")
+    check(f32[0]["pyramid_digests"] == f32[1]["pyramid_digests"],
+          "multi (g): the ranks' float32 pyramids differ")
+    check(sp[0]["pyramid_digests"] == sp[1]["pyramid_digests"]
+          and len(sp[0]["pyramid_digests"]) == 4,
+          "multi (g): the ranks' pyramids differ")
+    check(all(all(s["falls"]) for s in sp), "multi (g): a loss did not fall")
+    want = {"remd_mins": 2 * 4 * steps, "selfsim_fwd": 4 * steps,
+            "selfsim_bwd": 4 * steps, "block1_fwd": 4 * steps + 8,
+            "block1_bwd": 4 * steps, "sinkhorn_lse": 0, "sinkhorn_prep": 0}
+    check(all(s["launches"] == want for s in sp),
+          f"multi (g): launches {[s['launches'] for s in sp]}, want {want}")
+    floor = one["spatial"]
+    check(max(floor["loss_rel_err"]) <= 1e-3
+          and len(floor["pyramid_digests"]) == 4,
+          f"multi (g): the one-rank 'spatial' mesh: {floor['loss_rel_err']}")
+    # (h)
+    mem = [r["spatial_memory"] for r in pair]
+    one_peak = mem[0]["one_rank"]["peak_gib"]
+    ratios = [m["sharded"]["peak_gib"] / one_peak for m in mem]
+    check(max(ratios) < 0.75, f"multi (h): a sharded rank's peak is "
+          f"{ratios} of the one-rank peak {one_peak} GiB")
+    check(all(np.isfinite(m["sharded"]["loss"]) for m in mem)
+          and mem[0]["sharded"]["hw"] == [1536, 2048],
+          f"multi (h): {mem}")
     served = _serve_nccl()
     d_steps = 4 * steps
     emit({"phase": "multi", "seconds": time.perf_counter() - t0,
@@ -2565,8 +2810,30 @@ def phase_multi():
               "one_rank_seconds_per_step": ref["seconds"] / d_steps,
               "launches_per_rank": [r["launches"] for r in two],
               "one_rank_launches": ref["launches"]},
-          "serve": served})
-    return sh[0]["launches"]
+          "serve": served,
+          "block1_slabs": slabs,
+          "spatial": {
+              "config": "StrotssConfig(max_iter=10, shard_spatial=True), "
+                        "480x640 / 720x560, 2 ranks on one card (gloo)",
+              "rows": "content 384x512 at 512 px: 192/192",
+              "loss_rel_err": [s["loss_rel_err"] for s in sp],
+              "grad_err": [s["grad_err"] for s in sp],
+              "grad_errs_rank0": sp[0]["grad_errs"],
+              "launches_per_rank": [s["launches"] for s in sp],
+              "seconds_per_step": [s["seconds_per_step"] for s in sp],
+              "one_rank_seconds_per_step": one["single_seconds_per_step"],
+              "float32": {k: [s[k] for s in f32] for k in (
+                  "loss_rel_err", "grad_err", "seconds_per_step")},
+              "one_rank_spatial_mesh": {k: floor[k] for k in (
+                  "loss_rel_err", "grad_err", "grad_errs", "launches",
+                  "seconds_per_step")}},
+          "spatial_memory": {
+              "config": "StrotssConfig(levels=6, start_level=5, max_iter=1)"
+                        " with init_image, content 1536x2048",
+              "one_rank": mem[0]["one_rank"],
+              "sharded": [m["sharded"] for m in mem],
+              "ratio": ratios}})
+    return sh[0]["launches"], sp[0]["launches"]
 
 
 _TIMES = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")
@@ -2590,13 +2857,16 @@ def _with_yuv(main, yuv):
     return entry
 
 
-def kernels_line(meas, launches, masked, features, batched, multi):
+def kernels_line(meas, launches, masked, features, batched, multi,
+                 spatial):
     """``launches``: the main path's counts (K4's from the sinkhorn
     phase's run (b)); ``masked``: the masked phase's, as
     ``launches_masked``; ``features``: the features phase's blended run's,
     as ``launches_blended``; ``batched``: the batch phase's 8-pair run's,
     as ``launches_batched``; ``multi``: rank 0's in the multi phase's
-    ``shard_samples`` run, as ``launches_multi_per_rank``. The block1 rows
+    ``shard_samples`` run, as ``launches_multi_per_rank``; ``spatial``:
+    rank 0's in its ``shard_spatial`` run, as
+    ``launches_spatial_per_rank``. The block1 rows
     carry the pair axis's times
     (B = 8 images at the batch's 64 px and 512 px content shapes: one
     launch, and B one-image launches as ``singles_ms``)."""
@@ -2627,6 +2897,7 @@ def kernels_line(meas, launches, masked, features, batched, multi):
             "launches_blended": features[name],
             "launches_batched": batched[name],
             "launches_multi_per_rank": multi[name],
+            "launches_spatial_per_rank": spatial[name],
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
@@ -2668,7 +2939,7 @@ def main() -> int:
         masked = phase_masked(vgg_params)
         batched = phase_batch(main_info)
         phase_serve()
-        multi = phase_multi()
+        multi, spatial = phase_multi()
         features = phase_features(main_info)
         phase_profile(vgg_params)
         cosine_pass_ms = meas["sinkhorn_lse"][0]["ms"]
@@ -2680,7 +2951,7 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     print(json.dumps(kernels_line(meas, launches, masked, features,
-                                  batched, multi)), flush=True)
+                                  batched, multi, spatial)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

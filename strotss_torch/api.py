@@ -78,7 +78,8 @@ def stylize(
     ``strotss_tpu/api.py:25-36``): every rank calls ``stylize`` with the
     same inputs and gets the whole result; the device is the rank's own.
     With ``cfg.shard_samples`` the transport losses split the style
-    samples over its 'sample' axis.
+    samples over its 'sample' axis; with ``cfg.shard_spatial`` VGG runs on
+    each rank's rows of the image over its 'spatial' axis.
     """
     check_image("content", content)
     multi = isinstance(style, (list, tuple))

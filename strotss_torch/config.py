@@ -5,8 +5,8 @@ the same fields and defaults (a test holds them equal). Importing the JAX
 package's module would import JAX, so the port keeps this copy.
 ``shard_samples`` splits the transport losses' style samples over a
 mesh's 'sample' axis (not with ``use_sinkhorn``: ROADMAP.md Queue 1 item
-17); ``shard_spatial`` exists so that configurations carry over, and the
-port raises where it is set (item 16).
+17); ``shard_spatial`` splits one stylization's VGG stack by image height
+over its 'spatial' axis (:mod:`strotss_torch.parallel.spatial`).
 """
 
 from __future__ import annotations
@@ -76,8 +76,12 @@ class StrotssConfig:
     sinkhorn_lambda: float = 10.0
     sinkhorn_iters: int = 30
     #: split REMD's style samples over the mesh's 'sample' axis (needs
-    #: ``mesh=``); the spatial split is not ported
+    #: ``mesh=``)
     shard_samples: bool = False
+    #: split the VGG stack (forward and backward) by image height over the
+    #: mesh's 'spatial' axis, with halo exchanges (needs ``mesh=``; single
+    #: pairs only, ``stylize``); composes with ``shard_samples`` on a 2-D
+    #: ('spatial', 'sample') mesh
     shard_spatial: bool = False
 
     def scale_sizes(self) -> list:

@@ -88,10 +88,35 @@ def preprocess(x: torch.Tensor, mode: str = "norm") -> torch.Tensor:
     raise ValueError(f"Unknown preprocess mode: {mode}")
 
 
-def _conv(h: torch.Tensor, p: Dict[str, torch.Tensor],
-          dtype: torch.dtype) -> torch.Tensor:
-    y = F.conv2d(h, p["kernel"].to(dtype), padding=1)
+def _conv(h: torch.Tensor, p: Dict[str, torch.Tensor], dtype: torch.dtype,
+          slab=None, level: int = 0) -> torch.Tensor:
+    k = p["kernel"].to(dtype)
+    y = F.conv2d(h, k, padding=1) if slab is None else slab.conv(h, k, level)
     return torch.relu(y + p["bias"].to(dtype)[None, :, None, None])
+
+
+def _block1_convs(h: torch.Tensor, params, names: Sequence[str],
+                  dtype: torch.dtype, fused: bool, block1_impl: str,
+                  slab=None):
+    """Block1's convolutions ``names`` (one or both) of the NCHW image
+    ``h``: their NCHW outputs, fused through K3 or as ``F.conv2d``. Under
+    a ``slab``, ``h`` is the extended slab and the outputs are this rank's
+    rows."""
+    if not fused:
+        if slab is not None:
+            return slab.block1(lambda t: _block1_convs(
+                t, params, names, dtype, False, block1_impl), h, len(names),
+                _BLOCK_WIDTHS[0])
+        out = []
+        for name in names:
+            h = _conv(h, params[name], dtype)
+            out.append(h)
+        return out
+    p1, p2 = params["block1_conv1"], params["block1_conv2"]
+    fn = _block1.block1 if slab is None else slab.fused_block1
+    taps = fn(h.permute(0, 2, 3, 1), p1["kernel"], p1["bias"], p2["kernel"],
+              p2["bias"], impl="auto" if block1_impl == "pallas" else "plain")
+    return [t.permute(0, 3, 1, 2) for t in taps]
 
 
 def vgg_apply(
@@ -102,10 +127,15 @@ def vgg_apply(
     preprocess_mode: str = "norm",
     compute_dtype: str = "float32",
     block1_impl: str = "xla",
+    slab=None,
 ) -> List[torch.Tensor]:
     """Run VGG on an NHWC [0,1] RGB image; return the taps (NHWC views).
 
     ``block1_impl``: ``'xla'``, ``'pallas'`` or ``'plain'`` (module doc).
+    ``slab`` (:class:`strotss_torch.parallel.spatial.Slab`): run on this
+    rank's rows of the replicated image ``x`` only, and return this rank's
+    rows of each tap: block1 on the rows with 4 extra a side, cropped;
+    blocks 2-5 with the halo exchange.
     """
     if block1_impl not in ("xla", "pallas", "plain"):
         raise ValueError("block1_impl must be 'xla', 'pallas' or 'plain', "
@@ -115,35 +145,36 @@ def vgg_apply(
     deepest = max(names.index(t) for t in taps)
     dtype = _DTYPES[compute_dtype]
     mixed = dtype == torch.bfloat16
+    if slab is not None:
+        x = slab.extended(x)
     h = preprocess(x.float(), preprocess_mode).permute(0, 3, 1, 2)
     outs: Dict[str, torch.Tensor] = {}
-    idx = 0
-    fuse_b1 = block1_impl != "xla" and mixed and deepest >= 1
-    for b, n_convs in enumerate(_BLOCK_CONVS[str(vgg_type)]):
-        dt = torch.float32 if (mixed and b == 0) else dtype
-        h = h.to(dt)
-        if b == 0 and fuse_b1:
-            p1, p2 = params["block1_conv1"], params["block1_conv2"]
-            t1, t2 = _block1.block1(
-                h.permute(0, 2, 3, 1), p1["kernel"], p1["bias"],
-                p2["kernel"], p2["bias"],
-                impl="auto" if block1_impl == "pallas" else "plain")
-            outs["block1_conv1"], outs["block1_conv2"] = t1, t2
-            if deepest == 1:
-                return [outs[t] for t in taps]
-            h = F.max_pool2d(t2.permute(0, 3, 1, 2), kernel_size=2,
-                             stride=2)
-            idx = 2
-            continue
-        for _ in range(n_convs):
+    fused = block1_impl != "xla" and mixed and deepest >= 1
+    n_convs = _BLOCK_CONVS[str(vgg_type)]
+    # block1 at full resolution: float32-stored taps under the bf16 policy
+    run = names[:min(n_convs[0], deepest + 1)]
+    dt = torch.float32 if mixed else dtype
+    h = h.to(dt)
+
+    ys = _block1_convs(h, params, run, dt, fused, block1_impl, slab)
+    for name, y in zip(run, ys):
+        if name in taps:
+            outs[name] = y.permute(0, 2, 3, 1)
+    idx = len(run)
+    h = ys[-1]
+    for b, n in enumerate(n_convs[1:], start=1):
+        if idx > deepest:
+            break
+        h = (F.max_pool2d(h, kernel_size=2, stride=2) if slab is None
+             else slab.pool(h)).to(dtype)
+        for _ in range(n):
             name = names[idx]
-            h = _conv(h, params[name], dt)
+            h = _conv(h, params[name], dtype, slab, b)
             if name in taps:
                 outs[name] = h.permute(0, 2, 3, 1)
-            if idx == deepest:
-                return [outs[t] for t in taps]
             idx += 1
-        h = F.max_pool2d(h, kernel_size=2, stride=2)
+            if idx > deepest:
+                break
     return [outs[t] for t in taps]
 
 
@@ -170,7 +201,7 @@ class VGG(torch.nn.Module):
         return {n: {"kernel": getattr(self, f"{n}_kernel"),
                     "bias": getattr(self, f"{n}_bias")} for n in self.names}
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def forward(self, x: torch.Tensor, slab=None) -> List[torch.Tensor]:
         return vgg_apply(self.params(), x, self.taps, self.vgg_type,
                          self.preprocess_mode, self.compute_dtype,
-                         self.block1_impl)
+                         self.block1_impl, slab)

@@ -162,14 +162,11 @@ def _squeeze_map(fmap: torch.Tensor) -> torch.Tensor:
     return fmap[0] if fmap.ndim == 4 else fmap
 
 
-def bilinear_gather(fmap: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
-    """4-tap bilinear lookup of (n,2) float coords on an (h,w,c) map.
-
-    Corner indices floor and floor+1 are clipped independently to the map
-    (the reference's border rule); the blend runs in float32.
-    """
-    fmap = _squeeze_map(fmap)
-    h, w = fmap.shape[0], fmap.shape[1]
+def bilinear_corners(coords: torch.Tensor, h: int, w: int):
+    """The four corners (row, col, weight) of each of the (n, 2) float
+    coords on an (h, w) map, in the order :func:`bilinear_gather` blends
+    them. Corner indices floor and floor+1 are clipped independently to
+    the map (the reference's border rule)."""
     gx, gy = coords[:, 0], coords[:, 1]
     gxf, gyf = torch.floor(gx), torch.floor(gy)
     dx, dy = gx - gxf, gy - gyf
@@ -177,14 +174,20 @@ def bilinear_gather(fmap: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     y0 = gyf.clamp(0, w - 1).long()
     x1 = (gxf + 1).clamp(0, h - 1).long()
     y1 = (gyf + 1).clamp(0, w - 1).long()
-    corners = (
+    return (
         (x0, y0, (1 - dx) * (1 - dy)),
         (x0, y1, (1 - dx) * dy),
         (x1, y0, dx * (1 - dy)),
         (x1, y1, dx * dy),
     )
+
+
+def bilinear_gather(fmap: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """4-tap bilinear lookup of (n,2) float coords on an (h,w,c) map at
+    :func:`bilinear_corners`; the blend runs in float32."""
+    fmap = _squeeze_map(fmap)
     out = None
-    for xi, yi, wt in corners:
+    for xi, yi, wt in bilinear_corners(coords, fmap.shape[0], fmap.shape[1]):
         term = fmap[xi, yi].float() * wt[:, None]
         out = term if out is None else out + term
     return out
@@ -206,8 +209,13 @@ def sample_hypercolumn(feats: Sequence[torch.Tensor], coords: torch.Tensor,
 
     ``integer_coords=True`` asserts the base coords are exact integers
     (true for both grids): maps at factor 1.0 then take the nearest lookup,
-    which equals the bilinear one there.
+    which equals the bilinear one there. ``feats`` may be a hypercolumn
+    split by height over ranks
+    (:class:`strotss_torch.parallel.spatial.SlabColumns`), which samples
+    itself: the same rows, bit for bit.
     """
+    if hasattr(feats, "sample"):
+        return feats.sample(coords, bilinear, integer_coords)
     shapes = [tuple(_squeeze_map(f).shape[:2]) for f in feats]
     factors = coordinate_factors(shapes)
     parts = []

@@ -200,8 +200,8 @@ def _check_pairs(contents, styles, init_images, content_masks, style_masks,
         raise ValueError(
             "shard_spatial is a single-pair scale-out feature (stylize); "
             "the batched path scales over the mesh's 'data' axis instead")
-    group = sample_group(cfg, mesh, "stylize_batch",
-                         "(D, S), ('data', 'sample')")
+    group, _ = sample_group(cfg, mesh, "stylize_batch",
+                            "(D, S), ('data', 'sample')")
     names = () if mesh is None else tuple(mesh.mesh_dim_names or ())
     if mesh is not None and "data" not in names:
         raise ValueError(

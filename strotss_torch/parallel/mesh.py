@@ -15,6 +15,10 @@ names:
   ``cfg.shard_samples`` (:mod:`strotss_torch.parallel.transport`); one
   (p, N) all-gather, one scalar all-reduce and one (N, C) gradient
   all-reduce a REMD term a step.
+- ``spatial``: the rows of one image under ``cfg.shard_spatial``
+  (:mod:`strotss_torch.parallel.spatial`); two halo all-gathers a
+  convolution of blocks 2-5 and one a sampled tap map, one (n, C)
+  all-reduce a sampling and one (H, W, 3) gradient all-reduce a step.
 
 The ranks start through :mod:`strotss_torch.parallel.launch` or through
 ``torchrun``; each then calls :func:`make_mesh`. The backend is NCCL when

@@ -27,7 +27,7 @@ run on one rank's tensors.
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, List, NamedTuple, Sequence, Tuple
+from typing import Callable, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -58,7 +58,10 @@ class StepSpec(NamedTuple):
     or ``'xla'`` (``F.conv2d``). ``shard_samples``: both REMD terms split
     the style samples over the mesh's 'sample' axis
     (:mod:`strotss_torch.parallel.transport`); the process group comes to
-    :func:`step_losses` as an argument.
+    :func:`step_losses` as an argument. ``shard_spatial``: VGG runs on
+    each rank's rows of the image over the mesh's 'spatial' axis
+    (:mod:`strotss_torch.parallel.spatial`), which comes to
+    :func:`optimization_steps` as an argument.
     """
 
     sample_size: int
@@ -74,6 +77,7 @@ class StepSpec(NamedTuple):
     block1_impl: str
     remat: bool = False
     shard_samples: bool = False
+    shard_spatial: bool = False
 
 
 def _block1_route(cfg: StrotssConfig, device) -> str:
@@ -126,6 +130,7 @@ def spec_from_config(cfg: StrotssConfig, device="cpu",
         block1_impl=_block1_route(cfg, device),
         remat=cfg.remat,
         shard_samples=cfg.shard_samples,
+        shard_spatial=cfg.shard_spatial,
     )
 
 
@@ -203,24 +208,46 @@ class RMSprop:
             p.add_((g * torch.rsqrt(nu + self.eps)) * (-self.lr))
 
 
-def extract_hypercolumn(vgg: VGG, img: torch.Tensor) -> List[torch.Tensor]:
-    """Image -> hypercolumn list [image, tap1..tapK]."""
-    return [img] + vgg(img)
+def _columns(vgg: VGG, img: torch.Tensor, taps, slab):
+    """[image, tap1..tapK], or under a ``slab`` the split hypercolumn of
+    this rank's rows of the taps."""
+    if slab is None:
+        return [img] + taps
+    from strotss_torch.parallel.spatial import SlabColumns, tap_level
+
+    return SlabColumns(img, taps, [tap_level(t) for t in vgg.taps], slab)
 
 
-def extract_for_grad(spec: StepSpec, vgg: VGG,
-                     img: torch.Tensor) -> List[torch.Tensor]:
+def extract_hypercolumn(vgg: VGG, img: torch.Tensor, spatial=None):
+    """Image -> hypercolumn list [image, tap1..tapK]. Under ``spatial``
+    (:class:`strotss_torch.parallel.spatial.Spatial`) VGG runs on this
+    rank's rows of the image only, and the hypercolumn is a
+    :class:`strotss_torch.parallel.spatial.SlabColumns` that samples like
+    the list."""
+    slab = None if spatial is None else spatial.slab(img.shape[1])
+    return _columns(vgg, img, vgg(img, slab), slab)
+
+
+def extract_for_grad(spec: StepSpec, vgg: VGG, img: torch.Tensor,
+                     spatial=None):
     """The loss path's extraction: :func:`extract_hypercolumn`, with the
     VGG forward under ``torch.utils.checkpoint`` when ``spec.remat`` is
     set, so the backward pass recomputes the activations instead of
     keeping them (``strotss_tpu/programs.py:159-172``). The recompute
-    runs block1's forward again, so kernel K3a launches twice a step. The
+    runs block1's forward again, so kernel K3a launches twice a step, and
+    under ``spatial`` the whole forward's halo exchanges again, in the
+    same order on every rank (the checkpoint's early stop, which ends a
+    recompute once it has what the backward reads, is off there). The
     per-scale content and style extractions run without gradients and
     keep nothing either way."""
     if not spec.remat:
-        return extract_hypercolumn(vgg, img)
-    return [img] + torch.utils.checkpoint.checkpoint(vgg, img,
-                                                     use_reentrant=False)
+        return extract_hypercolumn(vgg, img, spatial)
+    slab = None if spatial is None else spatial.slab(img.shape[1])
+    with (contextlib.nullcontext() if slab is None else
+          torch.utils.checkpoint.set_checkpoint_early_stop(False)):
+        taps = torch.utils.checkpoint.checkpoint(vgg, img, slab,
+                                                 use_reentrant=False)
+    return _columns(vgg, img, taps, slab)
 
 
 def warm_init_hw(content_h: int, content_w: int,
@@ -340,7 +367,7 @@ def step_losses(spec: StepSpec, content_feats, pred, style_targets,
 def optimization_steps(spec: StepSpec, n_steps: int, vgg: VGG, content_feats,
                        style_targets, style_moments, alpha: float, pyramid,
                        opt: RMSprop, coords_fn: Callable[[int], torch.Tensor],
-                       sample_group=None):
+                       sample_group=None, spatial=None):
     """``n_steps`` (>= 1) of sample -> VGG -> losses -> grad -> RMSprop.
 
     ``pyramid`` (a list of leaf tensors) is updated in place; the per-step
@@ -348,14 +375,18 @@ def optimization_steps(spec: StepSpec, n_steps: int, vgg: VGG, content_feats,
     run's device, so the loop never waits for the card. ``style_moments``
     are the targets' :func:`moment_stats`, hoisted out of the loop; the
     targets, moments and ``coords_fn``'s coordinates have one entry per
-    region (:func:`step_losses`, which takes ``sample_group``).
+    region (:func:`step_losses`, which takes ``sample_group``). Under
+    ``spatial`` (:class:`strotss_torch.parallel.spatial.Spatial`) the
+    content features are split by height too, VGG runs on this rank's rows
+    of the image, and the gradient of the VGG path is summed over the
+    'spatial' group into the image's, the same on every rank.
     """
     rows = []
     for t in range(n_steps):
         coords = coords_fn(t)
         leaves = [p.requires_grad_(True) for p in pyramid]
         img = fold_laplacian_pyramid(leaves)
-        pred = extract_for_grad(spec, vgg, img)
+        pred = extract_for_grad(spec, vgg, img, spatial)
         loss, lc, ls = step_losses(spec, content_feats, pred, style_targets,
                                    style_moments, alpha, coords,
                                    sample_group=sample_group)

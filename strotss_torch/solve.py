@@ -11,9 +11,13 @@ its own style targets and coordinates each step, and the loss averages
 the regions), a blend of several styles (the style target mixes samples
 of each style in proportion to its weight), a warm start from an image,
 skipped coarse scales (``start_level``) and checkpoints that an
-interrupted run resumes from. Under a mesh every rank runs the loop, and
+interrupted run resumes from. Under a mesh every rank runs the loop,
 ``cfg.shard_samples`` splits the REMD terms' style samples over the
-mesh's 'sample' axis. Every rank then holds a replica of the pyramid: the
+mesh's 'sample' axis, and ``cfg.shard_spatial`` runs VGG (the per-scale
+content and style extractions and every step's forward and backward) on
+each rank's rows of the images over its 'spatial' axis
+(:mod:`strotss_torch.parallel.spatial`; the content features stay split
+for the scale). Every rank then holds a replica of the pyramid: the
 run takes PyTorch's deterministic algorithms, and the replicas are
 checked to agree bit for bit after each scale (:func:`check_replicas`).
 """
@@ -107,27 +111,27 @@ def scale_generators(seed: int, scale_index: int,
 
 def sample_group(cfg: StrotssConfig, mesh, entry: str, example: str):
     """The up-front mesh contracts of ``entry`` (``strotss_tpu/solve.py:
-    226-242``), and the 'sample' process group under ``cfg.shard_samples``
-    (else None). ``shard_spatial`` and ``shard_samples`` with
-    ``use_sinkhorn`` are not ported (ROADMAP.md Queue 1 items 16, 17)."""
-    if cfg.shard_spatial:
-        raise NotImplementedError(
-            "StrotssConfig.shard_spatial is not ported to strotss_torch yet "
-            "(ROADMAP.md Queue 1 item 16): it needs halo exchanges through "
-            "the VGG stack")
-    if not cfg.shard_samples:
-        return None
-    if mesh is None or "sample" not in (mesh.mesh_dim_names or ()):
-        # a silent single-device run would betray the explicit request
+    226-242``), and the process groups of the mesh's 'sample' axis under
+    ``cfg.shard_samples`` and of its 'spatial' axis under
+    ``cfg.shard_spatial`` (each else None). ``shard_samples`` with
+    ``use_sinkhorn`` is not ported (ROADMAP.md Queue 1 item 17)."""
+    names = () if mesh is None else tuple(mesh.mesh_dim_names or ())
+    # a silent single-device run would betray the explicit request
+    if cfg.shard_spatial and "spatial" not in names:
+        raise ValueError(
+            "cfg.shard_spatial needs a mesh with a 'spatial' axis — pass "
+            "stylize(..., mesh=make_mesh((N,), ('spatial',)))")
+    if cfg.shard_samples and "sample" not in names:
         raise ValueError(
             "cfg.shard_samples needs a mesh with a 'sample' axis — pass "
             f"{entry}(..., mesh=make_mesh({example}))")
-    if cfg.use_sinkhorn:
+    if cfg.shard_samples and cfg.use_sinkhorn:
         raise NotImplementedError(
             "StrotssConfig.shard_samples with use_sinkhorn is not ported to "
             "strotss_torch yet (ROADMAP.md Queue 1 item 17): shard_samples "
             "splits REMD's style samples only")
-    return mesh.get_group("sample")
+    return (mesh.get_group("sample") if cfg.shard_samples else None,
+            mesh.get_group("spatial") if cfg.shard_spatial else None)
 
 
 def check_replicas(pyramid: Sequence[torch.Tensor], group,
@@ -296,12 +300,15 @@ def stylize_single(
     ``mesh`` (:func:`strotss_torch.parallel.make_mesh`): every rank of it
     calls with the same inputs, on its own device, and returns the whole
     result. Under ``cfg.shard_samples`` the REMD terms split the style
-    samples over its 'sample' axis; every rank draws the same coordinates
-    from the same seeded generators, with no traffic. Only rank 0 writes
+    samples over its 'sample' axis, under ``cfg.shard_spatial`` VGG runs
+    on each rank's rows of the images over its 'spatial' axis; every rank
+    draws the same coordinates from the same seeded generators, with no
+    traffic. Only rank 0 writes
     checkpoints and calls ``snapshot_cb``; every rank calls
     ``progress_cb``.
     """
-    group = sample_group(cfg, mesh, "stylize", "(N,), ('sample',)")
+    group, spatial_group = sample_group(cfg, mesh, "stylize",
+                                        "(N,), ('sample',)")
     lead = mesh is None or mesh.get_rank() == 0
     # under a mesh every rank holds the whole pyramid
     replicas = None if mesh is None else dist.group.WORLD
@@ -319,6 +326,11 @@ def stylize_single(
             content.shape[1], content.shape[2], cfg))
     # ValueError on a bad block1_impl
     spec = spec_from_config(cfg, device, masked=masked)
+    spatial = None
+    if spatial_group is not None:
+        from strotss_torch.parallel.spatial import Spatial
+
+        spatial = Spatial(spatial_group, spec.taps)
     if snapshot_cb is not None and cfg.save_every > 0 and cfg.max_iter > 0:
         # snapshots fire at chunk boundaries: chunk at the coarsest size
         # of which every save_every multiple is one
@@ -397,10 +409,11 @@ def stylize_single(
             ran = done < cfg.max_iter
             if ran:
                 with torch.no_grad():
-                    content_feats = extract_hypercolumn(vgg, scl_c)
+                    content_feats = extract_hypercolumn(vgg, scl_c,
+                                                        spatial)
                     style_targets = _style_targets(
                         vgg, coords_source, style_gen, i, scl_s, shw, n,
-                        style_ns, device, style_masks)
+                        style_ns, device, style_masks, spatial)
                     style_moments = [moment_stats(t) for t in style_targets]
                 cmasks = ([prepare_mask(m, chw) for m in content_masks]
                           if masked else [None])
@@ -415,7 +428,7 @@ def stylize_single(
                 curve.append(optimization_steps(
                     spec, k, vgg, content_feats, style_targets,
                     style_moments, alpha, pyramid, opt,
-                    lambda t, d=done: coords_fn(d + t), group))
+                    lambda t, d=done: coords_fn(d + t), group, spatial))
                 image = None
                 if cfg.checkpoint_dir or (snapshot_cb is not None
                                           and cfg.save_every > 0):
@@ -473,21 +486,23 @@ def stylize_single(
 
 
 def _style_targets(vgg, coords_source, gen, i, scl_s, shw, n, style_ns,
-                   device, style_masks) -> torch.Tensor:
+                   device, style_masks, spatial=None) -> torch.Tensor:
     """(K, n, C) style targets of one scale, drawn from the scale's style
     generator: one a region of the raw ``style_masks`` (K = 1 without
     masks) or, under blending, ``style_ns[j]`` full-grid samples of each
     style ``j`` in turn, their rows concatenated
-    (``strotss_tpu/programs.py:319-336``)."""
+    (``strotss_tpu/programs.py:319-336``). Under ``spatial`` each style's
+    VGG runs on this rank's rows of it."""
     if style_ns is not None:
         parts = []
         for j, (img, hw, n_j) in enumerate(zip(scl_s, shw, style_ns)):
             xy = (coords_source(i, "style", -1, hw, n_j, j)
                   if coords_source is not None
                   else full_grid_coords(gen, hw, n_j, device))
-            parts.append(sample_style(xy, extract_hypercolumn(vgg, img)))
+            parts.append(sample_style(xy, extract_hypercolumn(vgg, img,
+                                                              spatial)))
         return torch.cat(parts)[None]
-    style_feats = extract_hypercolumn(vgg, scl_s)
+    style_feats = extract_hypercolumn(vgg, scl_s, spatial)
     smasks = ([prepare_mask(m, shw) for m in style_masks]
               if style_masks is not None else [None])
     return torch.stack([

@@ -719,3 +719,39 @@ def test_sharded_remd_on_card(cuda_device, p):
                 want = want.cpu().numpy()
                 np.testing.assert_allclose(
                     g, want, rtol=0, atol=1e-4 * np.abs(want).max())
+
+
+@pytest.mark.cuda
+def test_block1_on_spatial_slabs_on_card(cuda_device):
+    """K3a and K3b on the 'spatial' slabs of a 384x512 image (192/192 rows
+    on 2 ranks sharing the card over gloo, 4 extra rows a side;
+    ``Slab.fused_block1``): the taps on each rank's rows against the
+    whole image's K3a launch (tap1 to 1e-5 of max, tap2 1e-3), and the
+    image gradient, each rank's K3b dx on its own rows from the whole
+    image's cotangents summed by the slice's all-reduce, against the
+    whole image's K3b (1e-3 of max)."""
+    import torch_ranks as R
+    from strotss_torch.parallel.launch import launch
+
+    rng = np.random.default_rng(5)
+
+    def f(*shape, s=1.0):
+        return (rng.standard_normal(shape) * s).astype(np.float32)
+
+    case = (f(1, 384, 512, 3), f(64, 3, 3, 3, s=0.3), f(64, s=0.1),
+            f(64, 64, 3, 3, s=0.05), f(64, s=0.1), f(1, 384, 512, 64),
+            f(1, 384, 512, 64))
+    ranks = launch(R.spatial_block1, ["cuda:0"] * 2,
+                   args=([case], "cuda:0", "auto", 4), timeout=120)
+    x, k1, b1, k2, b2, g1, g2 = (torch.tensor(a, device=cuda_device)
+                                 for a in case)
+    t1, t2 = block1.block1_fwd(x, k1, b1, k2, b2)
+    dx = block1.block1_bwd(t1, t2, g1, g2, k1, k2).cpu().numpy()
+    for got, want, frac in ((1, t1, 1e-5), (2, t2, 1e-3)):
+        want = want.cpu().numpy()
+        have = np.concatenate([r[0][got - 1] for r in ranks], axis=1)
+        np.testing.assert_allclose(have, want, rtol=0,
+                                   atol=frac * np.abs(want).max())
+    for r in ranks:
+        np.testing.assert_allclose(r[0][2], dx, rtol=0,
+                                   atol=1e-3 * np.abs(dx).max())

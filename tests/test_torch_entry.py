@@ -142,14 +142,25 @@ def test_api_rejects_unported_paths(monkeypatch):
         strotss_torch.stylize(img, [img, img[0]], device="cpu")
 
 
+class _SampleMesh:
+    """A mesh with a 'sample' axis, as far as the contracts read one."""
+
+    mesh_dim_names = ("sample",)
+    device_type = "cpu"
+
+    def get_rank(self):
+        return 0
+
+
 def test_api_sharding_still_unported():
-    """``shard_spatial`` is not ported (ROADMAP.md Queue 1 item 16);
-    ``shard_samples`` without a mesh is refused with the JAX package's
-    error (``strotss_tpu/solve.py:237-250``)."""
+    """``shard_samples`` with ``use_sinkhorn`` is not ported (ROADMAP.md
+    Queue 1 item 17); ``shard_samples`` without a mesh is refused with the
+    JAX package's error (``strotss_tpu/solve.py:237-250``)."""
     img = np.zeros((1, 8, 8, 3), np.float32)
-    cfg = strotss_torch.StrotssConfig(shard_spatial=True)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        strotss_torch.stylize(img, img, cfg, device="cpu")
+    cfg = strotss_torch.StrotssConfig(shard_samples=True, use_sinkhorn=True)
+    with pytest.raises(NotImplementedError, match="item 17"):
+        strotss_torch.stylize(img, img, cfg, device="cpu",
+                              mesh=_SampleMesh())
     cfg = strotss_torch.StrotssConfig(shard_samples=True)
     with pytest.raises(ValueError) as got:
         strotss_torch.stylize(img, img, cfg, device="cpu")

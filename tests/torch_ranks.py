@@ -183,3 +183,257 @@ def checkpoint_runs(content, style, contents, styles, directory):
         ckpt.save_state = save_state
     out["saves"] = len(saves)
     return out
+
+
+# --- shard_spatial (tests/test_torch_spatial*.py) --------------------------
+
+def _spatial(depth_taps, shape=None, names=("spatial",)):
+    """A 'spatial' mesh of every rank (or ``shape``/``names``) and the
+    :class:`Spatial` of ``depth_taps``."""
+    from strotss_torch.parallel.spatial import Spatial
+
+    mesh = make_mesh(shape or (dist.get_world_size(),), names)
+    return mesh, Spatial(mesh.get_group("spatial"), depth_taps)
+
+
+def spatial_vgg(cases):
+    """For each (image, cotangents, taps, dtype, block1_impl): this rank's
+    rows of each tap of VGG16 on the image split by height, and the image
+    gradient of sum(tap * cotangent) over this rank's rows (the whole
+    image's, after the slice's all-reduce), and the slab bounds."""
+    from strotss_torch.models.vgg import VGG
+
+    out = []
+    for img, cots, taps, dtype, b1 in cases:
+        _, spatial = _spatial(taps)
+        vgg = VGG(_params(), taps=taps, compute_dtype=dtype, block1_impl=b1)
+        x = torch.tensor(img, requires_grad=True)
+        slab = spatial.slab(x.shape[1])
+        got = vgg(x, slab)
+        loss = 0.0
+        for t, c, name in zip(got, cots, taps):
+            a, b = slab.rows(int(name[5]) - 1)
+            loss = loss + (t.float() * torch.tensor(c[:, a:b])).sum()
+        g, = torch.autograd.grad(loss, x)
+        out.append(([t.detach().float().numpy() for t in got], g.numpy(),
+                    slab.bounds))
+    return out
+
+
+def spatial_conv(cases):
+    """For each (x NCHW, kernel, cotangent, height, depth, level, pool):
+    ``Slab.conv`` on this rank's rows of x, the map after ``level``
+    poolings of an image of ``height`` rows, then ``Slab.pool`` if
+    ``pool``; and the gradient of sum(out * cotangent) with respect to
+    the rows. Returns (conv rows, out rows, gradient rows, rows)."""
+    from strotss_torch.parallel.spatial import Slab
+
+    out = []
+    for x, k, cot, height, depth, level, pool in cases:
+        slab = Slab(height, dist.group.WORLD, depth)
+        a, b = slab.rows(level)
+        h = torch.tensor(x[:, :, a:b], requires_grad=True)
+        y = slab.conv(h, torch.tensor(k), level)
+        z = slab.pool(y) if pool else y
+        za, zb = slab.rows(level + pool)
+        loss = (z * torch.tensor(cot[:, :, za:zb])).sum()
+        g, = torch.autograd.grad(loss, h)
+        out.append((y.detach().numpy(), z.detach().numpy(), g.numpy(),
+                    (a, b)))
+    return out
+
+
+def spatial_block1(cases, device="cpu", impl="plain", depth=0):
+    """For each (x, k1, b1, k2, b2, g1, g2): fused block1
+    (``Slab.fused_block1``: K3a and K3b with ``impl`` 'auto' on the card,
+    or their plain versions) on this rank's extended slab of x, split in
+    units of ``2^depth`` rows: this rank's rows of both taps and the
+    image gradient of sum(tap1 * g1 + tap2 * g2) over its rows, summed
+    over the ranks by the slice's all-reduce."""
+    from strotss_torch.parallel.spatial import Slab
+
+    def t(a):
+        return torch.tensor(a, device=device)
+
+    out = []
+    for x, k1, b1, k2, b2, g1, g2 in cases:
+        xt = t(x).requires_grad_(True)
+        slab = Slab(x.shape[1], dist.group.WORLD, depth)
+        a, b = slab.rows(0)
+        t1, t2 = slab.fused_block1(slab.extended(xt), *map(t, (k1, b1, k2,
+                                                             b2)), impl=impl)
+        loss = (t1 * t(g1[:, a:b])).sum() + (t2 * t(g2[:, a:b])).sum()
+        g, = torch.autograd.grad(loss, xt)
+        out.append((t1.detach().cpu().numpy(), t2.detach().cpu().numpy(),
+                    g.cpu().numpy()))
+    return out
+
+
+def spatial_sampling(image, maps, levels, cases):
+    """For each (coords, bilinear, integer_coords, cotangent): the rows
+    ``SlabColumns.sample`` gives from this rank's rows of ``maps`` and the
+    gradient of sum(rows * cotangent) with respect to those rows."""
+    from strotss_torch.parallel.spatial import Slab, SlabColumns
+
+    slab = Slab(image.shape[1], dist.group.WORLD, max(levels))
+    out = []
+    for coords, bilinear, integer, cot in cases:
+        local = []
+        for m, j in zip(maps, levels):
+            a, b = slab.rows(j)
+            local.append(torch.tensor(m[:, a:b], requires_grad=True))
+        cols = SlabColumns(torch.tensor(image), local, levels, slab)
+        rows = cols.sample(torch.tensor(coords), bilinear, integer)
+        grads = torch.autograd.grad((rows * torch.tensor(cot)).sum(), local)
+        out.append((rows.detach().numpy(), [g.numpy() for g in grads],
+                    [slab.rows(j) for j in levels]))
+    return out
+
+
+class Table:
+    """A ``coords_source`` that replays coordinates made elsewhere (the
+    JAX package's, computed by the test): ``table[(scale, kind, step)]``."""
+
+    def __init__(self, table):
+        self.table = table
+
+    def __call__(self, i, kind, step, hw, n, *region):
+        return torch.tensor(self.table[(i, kind, step)])
+
+
+def spatial_runs(content, style, runs, shape=None, names=("spatial",),
+                 params=None):
+    """``stylize`` under ``shard_spatial`` on a mesh of every rank (or
+    ``shape``/``names``) for each (cfg kwargs, stylize kwargs; a
+    ``style`` there replaces ``style``): each scale's curve, the float
+    and uint8 images, and a digest of the pyramid after each scale."""
+    import hashlib
+
+    from strotss_torch import solve
+
+    mesh = make_mesh(shape or (dist.get_world_size(),), names)
+    params = _params() if params is None else params
+    out = []
+    for cfg_kw, kw in runs:
+        kw = dict(kw)
+        style_k = kw.pop("style", style)
+        digests = []
+        check = solve.check_replicas
+
+        def digest(pyramid, group, scale):
+            digests.append(hashlib.sha256(b"".join(
+                p.detach().numpy().tobytes() for p in pyramid)).hexdigest())
+            return check(pyramid, group, scale)
+
+        solve.check_replicas = digest
+        cfg = strotss_torch.StrotssConfig(shard_spatial=True, **cfg_kw)
+        try:
+            if "coords_source" in kw:  # solve's own argument
+                img, info = solve.stylize_single(
+                    torch.tensor(content), torch.tensor(style_k), cfg,
+                    params, mesh=mesh, **kw)
+            else:
+                img, info = strotss_torch.stylize(
+                    content, style_k, cfg, vgg_params=params, mesh=mesh,
+                    **kw)
+        finally:
+            solve.check_replicas = check
+        out.append(([s["curve"] for s in info["scales"]],
+                    info["stylized"].numpy(), img.numpy(), digests))
+    return out
+
+
+def spatial_steps(content, style, cfg_kw, shape=None,
+                  names=("spatial",)):
+    """Every step of a ``shard_spatial`` run held to the unsharded step
+    from the same pyramid: per step the sharded and the unsharded (loss,
+    loss_c, loss_s) and the largest difference of the pyramid gradients
+    over their largest value. The unsharded step runs here, on this
+    rank's replica, with the same coordinates."""
+    from strotss_torch import programs, solve
+    from strotss_torch.ops.image import fold_laplacian_pyramid
+
+    mesh = make_mesh(shape or (dist.get_world_size(),), names)
+    held = []
+    run_steps = solve.optimization_steps
+
+    def grads(spec, vgg, cf, pyramid, args, coords, spatial, group):
+        leaves = [p.detach().clone().requires_grad_(True) for p in pyramid]
+        pred = programs.extract_for_grad(
+            spec, vgg, fold_laplacian_pyramid(leaves), spatial)
+        loss = programs.step_losses(spec, cf, pred, *args, coords,
+                                    sample_group=group)
+        return (torch.stack(loss).detach(),
+                torch.autograd.grad(loss[0], leaves))
+
+    def held_steps(spec, n, vgg, content_feats, targets, moments, alpha,
+                   pyramid, opt, coords_fn, group=None, spatial=None):
+        whole = programs.extract_hypercolumn(vgg, content_feats.image)
+        rows = []
+        for t in range(n):
+            # one draw a step (the generator moves on at every call)
+            coords = coords_fn(t)
+            args = (targets, moments, alpha)
+            got, g = grads(spec, vgg, content_feats, pyramid, args, coords,
+                           spatial, group)
+            ref, gu = grads(spec._replace(shard_samples=False), vgg, whole,
+                            pyramid, args, coords, None, None)
+            flat = torch.cat([x.reshape(-1) for x in g])
+            flat_u = torch.cat([x.reshape(-1) for x in gu])
+            held.append((got.numpy(), ref.numpy(), float(
+                (flat - flat_u).abs().max() / flat_u.abs().max())))
+            rows.append(run_steps(spec, 1, vgg, content_feats, targets,
+                                  moments, alpha, pyramid, opt,
+                                  lambda s, c=coords: c, group, spatial))
+        return torch.cat(rows)
+
+    solve.optimization_steps = held_steps
+    try:
+        strotss_torch.stylize(content, style, strotss_torch.StrotssConfig(
+            shard_spatial=True, **cfg_kw), vgg_params=_params(), mesh=mesh)
+    finally:
+        solve.optimization_steps = run_steps
+    return held
+
+
+def spatial_resume(content, style, directory):
+    """A ``shard_spatial`` run (2 scales of 4 steps, chunks of 2) whole,
+    then stopped after the first chunk of scale 128 and resumed from its
+    checkpoint: how many states this rank saved, and (the whole and the
+    resumed float images, their last curves, where the checkpoint
+    stopped)."""
+    saves = []
+    save_state = ckpt.save_state
+
+    def counted(*a, **k):
+        saves.append(a[0])
+        return save_state(*a, **k)
+
+    ckpt.save_state = counted
+    mesh = make_mesh((dist.get_world_size(),), ("spatial",))
+    base = dict(levels=2, max_iter=4, log_every=2, shard_spatial=True,
+                **TINY)
+    base["taps"] = None  # the 9 default taps
+    params = _params()
+    try:
+        _, full = strotss_torch.stylize(
+            content, style, strotss_torch.StrotssConfig(**base),
+            vgg_params=params, mesh=mesh)
+        cfg = strotss_torch.StrotssConfig(checkpoint_dir=directory, **base)
+        try:
+            strotss_torch.stylize(content, style, cfg, vgg_params=params,
+                                  mesh=mesh, progress_cb=_stop_at(128))
+        except Interrupt:
+            pass
+        dist.barrier()
+        meta = ckpt.load_meta(directory)
+        dist.barrier()
+        _, resumed = strotss_torch.stylize(content, style, cfg,
+                                           vgg_params=params, mesh=mesh)
+    finally:
+        ckpt.save_state = save_state
+    return {"saves": len(saves),
+            "run": (full["stylized"].numpy(), resumed["stylized"].numpy(),
+                    full["scales"][-1]["curve"],
+                    resumed["scales"][-1]["curve"],
+                    (meta["scale_index"], meta["done_steps"]))}
