@@ -29,8 +29,10 @@ and runs a masked batch with a padded region; the serve phase runs
 warm job). The multi phase starts ranks through
 ``strotss_torch.parallel.launch``: two sharing the card over gloo hold
 the sample-sharded REMD (K1 on each rank's shard) bit for bit to one
-rank, run full-width ``shard_samples`` and ``shard_spatial``
-stylizations step by step against the unsharded step, a 2048 px
+rank and the sample-sharded Sinkhorn to the unsharded one, run
+full-width ``shard_samples`` (with REMD and with Sinkhorn) and
+``shard_spatial`` stylizations step by step against the unsharded step,
+a 2048 px
 ``shard_spatial`` step against one rank's peak memory, and a batch over
 a 'data' mesh bit for bit against one rank on a world-size-1 NCCL mesh;
 serve runs with ``--data_devices 1``; K3a and K3b are held on the
@@ -2124,7 +2126,8 @@ def phase_features(main_info, max_iter=200):
 
 def _rank_collectives():
     """(a) The collectives the port runs, on CUDA tensors, over this
-    run's backend: all_gather_into_tensor, all_reduce, broadcast. Returns
+    run's backend: all_gather_into_tensor, all_reduce with SUM and with
+    MAX (the sharded Sinkhorn's column maxima), broadcast. Returns
     what failed (empty: all is well); nothing is staged through the CPU
     here."""
     import torch
@@ -2145,11 +2148,15 @@ def _rank_collectives():
          lambda: [k + 7 for k in range(p) for _ in range(5)]),
         ("all_reduce", lambda: dist.all_reduce(out[0]),
          lambda: [p * (p + 1) / 2.0] * 4),
+        ("all_reduce (MAX)",
+         lambda: dist.all_reduce(out[0], op=dist.ReduceOp.MAX),
+         lambda: [float(p - 1), -1.0, 2.5]),
         ("broadcast", lambda: dist.broadcast(out[0], 0),
          lambda: [0.0] * 2))
     starts = (torch.empty(3 * p, device="cuda"),
               torch.empty(5 * p, dtype=torch.uint8, device="cuda"),
               torch.full((4,), r + 1.0, device="cuda"),
+              torch.tensor([float(r), -1.0 - r, 2.5], device="cuda"),
               torch.full((2,), float(r), device="cuda"))
     for (name, run, want), start in zip(probes, starts):
         out = [start]
@@ -2219,8 +2226,56 @@ def _rank_remd(cases):
     return out
 
 
-def _rank_shard_samples(content, style, steps):
-    """(c) ``stylize(mesh=...)`` under ``shard_samples`` at full width on a
+def _rank_sinkhorn(cases):
+    """(i) ``transport.sinkhorn_over_group`` with x's rows split over the
+    ranks, per (n, m, c, distance, seed), at the config's lam and
+    iterations: its value and both gradients against the unsharded
+    materialized ``_sinkhorn_plain`` on the same inputs (relative; over
+    max|g|), and a digest of the value and gradients (the ranks' must be
+    equal)."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    import strotss_torch
+    from strotss_torch.ops.losses import _sinkhorn_plain
+    from strotss_torch.parallel.transport import sinkhorn_over_group
+
+    cfg = strotss_torch.StrotssConfig()
+    lam, n_iter = cfg.sinkhorn_lambda, cfg.sinkhorn_iters
+    p, r = dist.get_world_size(), dist.get_rank()
+    out = []
+    for n, m, c, distance, seed in cases:
+        x = _inputs(seed, (n, c), positive=(c == 3))
+        y = _inputs(seed + 1, (m, c), positive=(c == 3))
+        xs, ys = (t.clone().requires_grad_(True) for t in (x, y))
+        t0 = time.perf_counter()
+        loss = sinkhorn_over_group(xs, ys, dist.group.WORLD, distance, lam,
+                                   n_iter)
+        gx, gy = torch.autograd.grad(loss, (xs, ys))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        xu, yu = (t.clone().requires_grad_(True) for t in (x, y))
+        ref = _sinkhorn_plain(xu, yu, distance, lam, n_iter)
+        gxu, gyu = torch.autograd.grad(ref, (xu, yu))
+        rows = torch.tensor_split(torch.arange(n), p)[r]
+        out.append({"shape": [n, m, c], "distance": distance,
+                    "shard_rows": [int(rows[0]), int(rows[-1]) + 1],
+                    "loss_rel_err": abs(loss.item() - ref.item())
+                    / abs(ref.item()),
+                    "grad_x_err": _grad_err(gx, gxu),
+                    "grad_y_err": _grad_err(gy, gyu),
+                    "seconds_fwd_bwd": seconds,
+                    "digest": hashlib.sha256(b"".join(
+                        t.detach().cpu().numpy().tobytes()
+                        for t in (loss, gx, gy))).hexdigest()})
+    return out
+
+
+def _rank_shard_samples(content, style, cfg):
+    """(c), (j) ``stylize(mesh=...)`` under ``cfg`` (``shard_samples``,
+    with REMD or Sinkhorn) at full width on a
     'sample' mesh of every rank: every step's (loss, loss_c, loss_s) and
     the loss's gradient with respect to the VGG taps (through the
     transport's backward, all-reduce included) held to the unsharded
@@ -2238,7 +2293,6 @@ def _rank_shard_samples(content, style, steps):
     from strotss_torch.parallel import make_mesh
 
     mesh = make_mesh((dist.get_world_size(),), ("sample",), devices="cuda")
-    cfg = strotss_torch.StrotssConfig(max_iter=steps, shard_samples=True)
     counted = _counted()
     held, digests, grad_errs = [], [], []
     step_losses, optimization_steps = (programs.step_losses,
@@ -2295,7 +2349,7 @@ def _rank_shard_samples(content, style, steps):
     return {"steps": len(held), "loss_rel_err": errs,
             "grad_err": max(grad_errs), "pyramid_digests": digests, "falls": falls,
             "launches": launches, "seconds": seconds,
-            "seconds_per_step": seconds / (cfg.levels * steps)}
+            "seconds_per_step": seconds / (cfg.levels * cfg.max_iter)}
 
 
 def _rank_batch(contents, styles, steps, seeds, alphas, halves=False):
@@ -2517,18 +2571,25 @@ def _rank_spatial_memory(content, style):
 
 
 def _rank_pair(remd_cases, content, style, contents, styles, steps, seeds,
-               alphas):
+               alphas, sinkhorn_cfg, spatial_steps):
     """One of two ranks sharing the card over gloo: (a), (b), (c), (d),
-    (g), (h)."""
+    (g), (h), (i), (j)."""
     import torch.distributed as dist
+
+    import strotss_torch
 
     out = {"backend": dist.get_backend(), "collectives": _rank_collectives()}
     if out["collectives"]:
         return out  # the phase fails on it; no run stages through the CPU
     out["remd"] = _rank_remd(remd_cases)
-    out["shard_samples"] = _rank_shard_samples(content, style, steps)
+    out["shard_samples"] = _rank_shard_samples(
+        content, style, strotss_torch.StrotssConfig(max_iter=steps,
+                                                    shard_samples=True))
+    out["sinkhorn"] = _rank_sinkhorn(remd_cases)
+    out["shard_samples_sinkhorn"] = _rank_shard_samples(content, style,
+                                                        sinkhorn_cfg)
     out["batch"] = _rank_batch(contents, styles, steps, seeds, alphas)
-    out["spatial"] = _rank_spatial(content, style, steps)
+    out["spatial"] = _rank_spatial(content, style, spatial_steps)
     # float32 (block1 on F.conv2d, blocks 2-5 in float32): the split itself
     out["spatial_f32"] = _rank_spatial(content, style, 2,
                                        compute_dtype="float32")
@@ -2536,11 +2597,14 @@ def _rank_pair(remd_cases, content, style, contents, styles, steps, seeds,
     return out
 
 
-def _rank_one(content, style, contents, styles, steps, seeds, alphas):
+def _rank_one(content, style, contents, styles, steps, seeds, alphas,
+              sinkhorn_cfg):
     """The one-rank side on a world-size-1 NCCL mesh (this process, see
     :func:`_in_process_rank`): the collectives, the unsharded run of (c)
     timed after a one-step warm-up run (under a mesh, so with the same
-    deterministic switches) and the batch of (d)."""
+    deterministic switches) and of (j), the batch of (d), (g) on the
+    whole image and (j) at one step a scale, every all-reduce over
+    NCCL."""
     import dataclasses
 
     import torch
@@ -2561,11 +2625,20 @@ def _rank_one(content, style, contents, styles, steps, seeds, alphas):
     out["single_seconds"] = time.perf_counter() - t0
     out["single_seconds_per_step"] = out["single_seconds"] / (
         cfg.levels * steps)
+    # (j)'s run unsharded, the materialized Sinkhorn whole on one rank
+    unsharded = dataclasses.replace(sinkhorn_cfg, shard_samples=False)
+    t0 = time.perf_counter()
+    strotss_torch.stylize(content, style, unsharded, mesh=mesh)
+    torch.cuda.synchronize()
+    out["single_sinkhorn_seconds_per_step"] = (
+        time.perf_counter() - t0) / (unsharded.levels * unsharded.max_iter)
     out["batch"] = _rank_batch(contents, styles, steps, seeds, alphas,
                                halves=True)
     # shard_spatial on a world of one, every exchange over NCCL: the same
     # code on the whole image, held to the unsharded step
     out["spatial"] = _rank_spatial(content, style, 2)
+    out["shard_samples_sinkhorn"] = _rank_shard_samples(
+        content, style, dataclasses.replace(sinkhorn_cfg, max_iter=1))
     return out
 
 
@@ -2652,20 +2725,31 @@ def phase_multi():
     NCCL at ``--data_devices 1``; (f) K3a and K3b on the two 'spatial'
     slabs of a 384x512 image against the whole image's launches (tap1 to
     1e-5 of max, tap2 and dx 1e-3); (g) a full-width ``shard_spatial``
-    run (4 scales x 10 steps) on both ranks: every step's losses within
+    run (4 scales x 5 steps) on both ranks: every step's losses within
     rtol 1e-3 and the pyramid's gradient within 5e-2 of max|g| of the
     unsharded step from the same state (bf16; float32, 4 x 2 steps: 1e-5
     and 1e-5), both ranks' pyramids bit for bit equal after each scale,
-    80/40/40/48/40/0/0 launches a rank, and 2 steps a scale on a
+    40/20/20/28/20/0/0 launches a rank, and 2 steps a scale on a
     world-size-1 'spatial' mesh over NCCL, held the same way; (h) one
     step at the 2048 px scale: each sharded rank's peak memory below
-    0.75x the one-rank peak. Two ranks on one card with gloo staging
-    through the host say nothing of scaling across cards. Returns rank
-    0's launches in (c) and in (g)."""
+    0.75x the one-rank peak; (i) the sample-sharded Sinkhorn at the
+    shapes of (b), x's rows split, against the unsharded materialized
+    Sinkhorn: the value to rtol 1e-5, both gradients to 1e-4 of max|g|,
+    the ranks' bits equal; (j) a full-width ``shard_samples`` +
+    ``use_sinkhorn`` run (4 scales x 3 steps) on both ranks, held as (c)
+    is to the unsharded materialized-Sinkhorn step, with 0 launches of
+    K1 and K4 and one of K2a and K2b a step, and 1 step a scale on a
+    world-size-1 'sample' mesh over NCCL, held the same way. Two ranks on
+    one card with gloo staging through the host say nothing of scaling
+    across cards. Returns rank 0's launches in (c), (g) and (j)."""
+    import strotss_torch
     from strotss_torch.parallel.launch import launch
 
     t0 = time.perf_counter()
-    steps = 10
+    # (g) takes 5 steps a scale, so that the script keeps to its time
+    steps, spatial_steps = 10, 5
+    sinkhorn_cfg = strotss_torch.StrotssConfig(
+        max_iter=3, shard_samples=True, use_sinkhorn=True)
     content, style = _smooth_image(480, 640, 21), _smooth_image(720, 560, 22)
     contents = np.concatenate([_smooth_image(480, 640, 40 + i)
                                for i in range(4)])
@@ -2677,13 +2761,14 @@ def phase_multi():
     slabs = check_block1_slabs(384, 512, 111)
     pair = launch(_rank_pair, ["cuda:0", "cuda:0"],
                   args=(remd_cases, content, style, contents, styles, steps,
-                        seeds, alphas), timeout=600)
+                        seeds, alphas, sinkhorn_cfg, spatial_steps),
+                  timeout=600)
     check(all(r["backend"] == "gloo" for r in pair),
           f"multi: backends {[r['backend'] for r in pair]}")
     bad = [r["collectives"] for r in pair]
     check(not any(bad), f"multi (a): gloo on CUDA tensors failed: {bad}")
     one = _in_process_rank(_rank_one, content, style, contents, styles,
-                           steps, seeds, alphas)
+                           steps, seeds, alphas, sinkhorn_cfg)
     check(one["backend"] == "nccl" and not one["collectives"],
           f"multi (a): NCCL world of 1: {one['backend']} "
           f"{one['collectives']}")
@@ -2753,7 +2838,7 @@ def phase_multi():
     # image, no split) is itself up to 1.9e-2 away (PERF.md, PR 15). In
     # float32 the split is held to 1e-5.
     sp = [r["spatial"] for r in pair]
-    check(all(s["steps"] == 4 * steps for s in sp),
+    check(all(s["steps"] == 4 * spatial_steps for s in sp),
           f"multi (g): held {[s['steps'] for s in sp]} steps")
     err = max(max(s["loss_rel_err"]) for s in sp)
     check(err <= 1e-3, f"multi (g): spatial against unsharded steps {err}")
@@ -2771,9 +2856,10 @@ def phase_multi():
           and len(sp[0]["pyramid_digests"]) == 4,
           "multi (g): the ranks' pyramids differ")
     check(all(all(s["falls"]) for s in sp), "multi (g): a loss did not fall")
-    want = {"remd_mins": 2 * 4 * steps, "selfsim_fwd": 4 * steps,
-            "selfsim_bwd": 4 * steps, "block1_fwd": 4 * steps + 8,
-            "block1_bwd": 4 * steps, "sinkhorn_lse": 0, "sinkhorn_prep": 0}
+    n = 4 * spatial_steps
+    want = {"remd_mins": 2 * n, "selfsim_fwd": n, "selfsim_bwd": n,
+            "block1_fwd": n + 8, "block1_bwd": n, "sinkhorn_lse": 0,
+            "sinkhorn_prep": 0}
     check(all(s["launches"] == want for s in sp),
           f"multi (g): launches {[s['launches'] for s in sp]}, want {want}")
     floor = one["spatial"]
@@ -2789,6 +2875,42 @@ def phase_multi():
     check(all(np.isfinite(m["sharded"]["loss"]) for m in mem)
           and mem[0]["sharded"]["hw"] == [1536, 2048],
           f"multi (h): {mem}")
+    # (i)
+    for case in (c for r in pair for c in r["sinkhorn"]):
+        check(case["loss_rel_err"] <= 1e-5,
+              f"multi (i): {case['shape']} {case['distance']} loss rel err "
+              f"{case['loss_rel_err']}")
+        check(max(case["grad_x_err"], case["grad_y_err"]) <= 1e-4,
+              f"multi (i): {case['shape']} {case['distance']} grad errs "
+              f"{case['grad_x_err']} {case['grad_y_err']} of max|g|")
+    check([c["digest"] for c in pair[0]["sinkhorn"]]
+          == [c["digest"] for c in pair[1]["sinkhorn"]],
+          "multi (i): the ranks' Sinkhorn values or gradients differ")
+    # (j), and its one step a scale over NCCL
+    sk = [r["shard_samples_sinkhorn"] for r in pair]
+    sk_one = one["shard_samples_sinkhorn"]
+    for runs, per in ((sk, sinkhorn_cfg.max_iter), ([sk_one], 1)):
+        n = sinkhorn_cfg.levels * per
+        check(all(s["steps"] == n for s in runs),
+              f"multi (j): held {[s['steps'] for s in runs]} steps, want {n}")
+        err = max(max(s["loss_rel_err"]) for s in runs)
+        check(err <= 1e-3, f"multi (j): sharded Sinkhorn against unsharded "
+              f"steps {err}")
+        gerr = max(s["grad_err"] for s in runs)
+        check(gerr <= 1e-4, f"multi (j): sharded Sinkhorn against unsharded "
+              f"step gradients {gerr} of max|g|")
+        check(all(len(s["pyramid_digests"]) == 4 for s in runs),
+              "multi (j): a scale left no pyramid digest")
+        want = {"remd_mins": 0, "selfsim_fwd": n, "selfsim_bwd": n,
+                "block1_fwd": n + 8, "block1_bwd": n, "sinkhorn_lse": 0,
+                "sinkhorn_prep": 0}
+        check(all(s["launches"] == want for s in runs),
+              f"multi (j): launches at {per} steps a scale "
+              f"{[s['launches'] for s in runs]}, want {want}")
+    check(sk[0]["pyramid_digests"] == sk[1]["pyramid_digests"],
+          "multi (j): the ranks' pyramids differ")
+    check(all(np.all(np.isfinite(s["loss_rel_err"])) for s in sk + [sk_one]),
+          "multi (j): a non-finite loss")
     served = _serve_nccl()
     d_steps = 4 * steps
     emit({"phase": "multi", "seconds": time.perf_counter() - t0,
@@ -2813,7 +2935,8 @@ def phase_multi():
           "serve": served,
           "block1_slabs": slabs,
           "spatial": {
-              "config": "StrotssConfig(max_iter=10, shard_spatial=True), "
+              "config": f"StrotssConfig(max_iter={spatial_steps}, "
+                        "shard_spatial=True), "
                         "480x640 / 720x560, 2 ranks on one card (gloo)",
               "rows": "content 384x512 at 512 px: 192/192",
               "loss_rel_err": [s["loss_rel_err"] for s in sp],
@@ -2832,8 +2955,24 @@ def phase_multi():
                         " with init_image, content 1536x2048",
               "one_rank": mem[0]["one_rank"],
               "sharded": [m["sharded"] for m in mem],
-              "ratio": ratios}})
-    return sh[0]["launches"], sp[0]["launches"]
+              "ratio": ratios},
+          "sinkhorn": [{k: v for k, v in c.items() if k != "digest"}
+                       for r in pair for c in r["sinkhorn"]],
+          "shard_samples_sinkhorn": {
+              "config": "StrotssConfig(max_iter=3, shard_samples=True, "
+                        "use_sinkhorn=True), 480x640 / 720x560, 2 ranks on "
+                        "one card (gloo)",
+              "loss_rel_err": [s["loss_rel_err"] for s in sk],
+              "grad_err": [s["grad_err"] for s in sk],
+              "launches_per_rank": [s["launches"] for s in sk],
+              "falls": [s["falls"] for s in sk],
+              "seconds_per_step": [s["seconds_per_step"] for s in sk],
+              "one_rank_seconds_per_step": one[
+                  "single_sinkhorn_seconds_per_step"],
+              "one_rank_nccl": {k: sk_one[k] for k in (
+                  "loss_rel_err", "grad_err", "launches",
+                  "seconds_per_step")}}})
+    return sh[0]["launches"], sp[0]["launches"], sk[0]["launches"]
 
 
 _TIMES = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")
@@ -2858,7 +2997,7 @@ def _with_yuv(main, yuv):
 
 
 def kernels_line(meas, launches, masked, features, batched, multi,
-                 spatial):
+                 spatial, multi_sinkhorn):
     """``launches``: the main path's counts (K4's from the sinkhorn
     phase's run (b)); ``masked``: the masked phase's, as
     ``launches_masked``; ``features``: the features phase's blended run's,
@@ -2866,7 +3005,9 @@ def kernels_line(meas, launches, masked, features, batched, multi,
     as ``launches_batched``; ``multi``: rank 0's in the multi phase's
     ``shard_samples`` run, as ``launches_multi_per_rank``; ``spatial``:
     rank 0's in its ``shard_spatial`` run, as
-    ``launches_spatial_per_rank``. The block1 rows
+    ``launches_spatial_per_rank``; ``multi_sinkhorn``: rank 0's in its
+    ``shard_samples`` + ``use_sinkhorn`` run, as
+    ``launches_multi_sinkhorn_per_rank``. The block1 rows
     carry the pair axis's times
     (B = 8 images at the batch's 64 px and 512 px content shapes: one
     launch, and B one-image launches as ``singles_ms``)."""
@@ -2898,6 +3039,7 @@ def kernels_line(meas, launches, masked, features, batched, multi,
             "launches_batched": batched[name],
             "launches_multi_per_rank": multi[name],
             "launches_spatial_per_rank": spatial[name],
+            "launches_multi_sinkhorn_per_rank": multi_sinkhorn[name],
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
@@ -2939,7 +3081,7 @@ def main() -> int:
         masked = phase_masked(vgg_params)
         batched = phase_batch(main_info)
         phase_serve()
-        multi, spatial = phase_multi()
+        multi, spatial, multi_sinkhorn = phase_multi()
         features = phase_features(main_info)
         phase_profile(vgg_params)
         cosine_pass_ms = meas["sinkhorn_lse"][0]["ms"]
@@ -2951,7 +3093,8 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     print(json.dumps(kernels_line(meas, launches, masked, features,
-                                  batched, multi, spatial)), flush=True)
+                                  batched, multi, spatial, multi_sinkhorn)),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

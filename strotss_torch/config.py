@@ -3,10 +3,10 @@
 The port's own copy of ``strotss_tpu/config.py``'s ``StrotssConfig``, with
 the same fields and defaults (a test holds them equal). Importing the JAX
 package's module would import JAX, so the port keeps this copy.
-``shard_samples`` splits the transport losses' style samples over a
-mesh's 'sample' axis (not with ``use_sinkhorn``: ROADMAP.md Queue 1 item
-17); ``shard_spatial`` splits one stylization's VGG stack by image height
-over its 'spatial' axis (:mod:`strotss_torch.parallel.spatial`).
+``shard_samples`` splits the transport losses' style samples, REMD's or
+Sinkhorn's, over a mesh's 'sample' axis; ``shard_spatial`` splits one
+stylization's VGG stack by image height over its 'spatial' axis
+(:mod:`strotss_torch.parallel.spatial`).
 """
 
 from __future__ import annotations

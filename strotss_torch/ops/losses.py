@@ -185,6 +185,16 @@ def sinkhorn(x: torch.Tensor, y: torch.Tensor, distance: str = "cosine",
     return _sinkhorn_plain(x, y, distance, lam, n_iter)
 
 
+def _unsharded_transport(use_sinkhorn: bool, lam: float, n_iter: int,
+                         impl: str):
+    """The transport term ``(target, prediction, distance) -> value`` of
+    an unsharded step: :func:`sinkhorn` or :func:`relaxed_emd`."""
+    if use_sinkhorn:
+        return lambda x, y, distance: sinkhorn(x, y, distance, lam, n_iter,
+                                               impl=impl)
+    return lambda x, y, distance: relaxed_emd(x, y, distance, impl=impl)
+
+
 def style_loss(
     target: torch.Tensor,
     prediction: torch.Tensor,
@@ -195,6 +205,7 @@ def style_loss(
     remd_impl: str = "auto",
     target_moments: Optional[tuple] = None,
     remd=None,
+    sinkhorn=None,
 ) -> torch.Tensor:
     """``moments + T(cosine) + (1/max(alpha,1)) * T(YUV, 'both')``, with
     the transport term T REMD, or Sinkhorn under ``use_sinkhorn``.
@@ -205,25 +216,21 @@ def style_loss(
     ``target_moments``: optional precomputed :func:`moment_stats` of
     ``target`` (the solver hoists them out of the step loop). ``remd``:
     the REMD function ``(target, prediction, distance) -> value`` in
-    place of :func:`relaxed_emd` (the sample-sharded one under
-    ``shard_samples``).
+    place of :func:`relaxed_emd`, and ``sinkhorn``: the Sinkhorn function
+    of the same signature in place of :func:`sinkhorn` (the
+    sample-sharded ones under ``shard_samples``).
     """
     inv_alpha = 1.0 / max(float(alpha), 1.0)
     if target_moments is None:
         target_moments = moment_stats(target)
     l_m = moment_matching_from_stats(target_moments, prediction)
     yuv_t, yuv_p = rgb_to_yuv(_f32(target)), rgb_to_yuv(_f32(prediction))
-    if use_sinkhorn:
-        l_t = sinkhorn(target, prediction, "cosine", sinkhorn_lambda,
-                       sinkhorn_iters, impl=remd_impl)
-        l_p = sinkhorn(yuv_t, yuv_p, "both", sinkhorn_lambda,
-                       sinkhorn_iters, impl=remd_impl)
-    else:
-        if remd is None:
-            def remd(x, y, distance):
-                return relaxed_emd(x, y, distance, impl=remd_impl)
-        l_t = remd(target, prediction, "cosine")
-        l_p = remd(yuv_t, yuv_p, "both")
+    transport = sinkhorn if use_sinkhorn else remd
+    if transport is None:
+        transport = _unsharded_transport(use_sinkhorn, sinkhorn_lambda,
+                                         sinkhorn_iters, remd_impl)
+    l_t = transport(target, prediction, "cosine")
+    l_p = transport(yuv_t, yuv_p, "both")
     return l_m + l_t + inv_alpha * l_p
 
 

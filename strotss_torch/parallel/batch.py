@@ -27,10 +27,10 @@ seeds, so each pair is its unsharded result (on the card bit for bit
 when the caller switches on ``torch.use_deterministic_algorithms``: a
 'data' axis holds no replicas, so it runs under the caller's switches, as
 an unsharded run does). Under ``cfg.shard_samples`` a (``data``,
-``sample``) mesh splits each pair's REMD terms over the 'sample' axis as
-well (:mod:`strotss_torch.parallel.transport`); the ranks of a 'sample'
-group hold replicas of their pairs' pyramid, so they run under the
-deterministic algorithms and are checked to agree after each scale.
+``sample``) mesh splits each pair's transport terms over the 'sample'
+axis as well (:mod:`strotss_torch.parallel.transport`); the ranks of a
+'sample' group hold replicas of their pairs' pyramid, so they run under
+the deterministic algorithms and are checked to agree after each scale.
 """
 
 from __future__ import annotations

@@ -14,7 +14,8 @@ names:
 - ``sample``: the style samples of the transport losses under
   ``cfg.shard_samples`` (:mod:`strotss_torch.parallel.transport`); one
   (p, N) all-gather, one scalar all-reduce and one (N, C) gradient
-  all-reduce a REMD term a step.
+  all-reduce a REMD term a step, five (M,) all-reduces an iteration a
+  Sinkhorn term a step.
 - ``spatial``: the rows of one image under ``cfg.shard_spatial``
   (:mod:`strotss_torch.parallel.spatial`); two halo all-gathers a
   convolution of blocks 2-5 and one a sampled tap map, one (n, C)

@@ -1,5 +1,8 @@
-"""REMD with the style samples split over ranks, the counterpart of
-``strotss_tpu/parallel/transport.py`` (lines 29-68).
+"""The transport losses with the style samples split over ranks: REMD,
+the counterpart of ``strotss_tpu/parallel/transport.py`` (lines 29-68),
+and Sinkhorn, the counterpart of the materialized
+``strotss_tpu.ops.losses.sinkhorn`` that GSPMD partitions under
+``shard_samples`` (``strotss_tpu/programs.py:567-583``).
 
 Every rank of the 'sample' group holds the whole prediction block x
 (N, C) and the whole style block y (M, C), and runs kernel K1
@@ -28,14 +31,37 @@ replicated loss's gradient by p.
 
 Traffic a call: one (p, N) all-gather and one scalar all-reduce forward,
 one (N, C) all-reduce backward (and one (M, C) where y needs a gradient).
+
+:func:`sinkhorn_over_group` splits the rows of x (the style targets,
+``sinkhorn(target, prediction)``'s first operand) instead: rank r holds
+x_r, its ``torch.tensor_split`` shard, and the whole of y, so its cost
+block C_r = d(x_r, y) is exactly the whole cost matrix's rows (every
+distance is row-local). The row half-update
+``log_u_r = log_p - LSE_j(log_k_r + log_v)`` is then local; the column
+half-update ``log_v = log_q - LSE_i(log_k + log_u)`` combines the ranks:
+the column maxima are all-reduced with MAX (detached: the LSE does not
+depend on its shift) and the sums of exp below them with SUM. ``log_v``,
+which every rank holds whole, enters each rank's local work through
+:class:`_Replicated`, the column sums and the result <T_r, C_r> leave
+through :class:`_Summed`; every value that a rank holds whole comes out
+of an all-reduce, so the ranks hold the same bits. Each iteration is
+recomputed in the backward pass, its all-reduces included (every rank
+recomputes the same graph in the same order). Traffic a call: two (M,)
+all-reduces an iteration and one scalar forward; in the backward pass
+three (M,) all-reduces an iteration (the recompute's two and log_v's
+gradient), one more for the final log_v, and the (N, C) and (M, C)
+gradient all-reduces.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.distributed as dist
+from torch.utils.checkpoint import checkpoint
 
-from strotss_torch.ops.losses import _f32, reshape_2d
+from strotss_torch.ops.losses import _f32, dist_metrics, reshape_2d
 
 
 class _Replicated(torch.autograd.Function):
@@ -102,6 +128,45 @@ def remd_over_group(x: torch.Tensor, y: torch.Tensor, group,
     row = torch.min(_Gathered.apply(rowmin, group), dim=0).values
     r_y = _Summed.apply(torch.sum(colmin), group) / y.shape[0]
     return torch.maximum(torch.mean(row), r_y)
+
+
+def sinkhorn_over_group(x: torch.Tensor, y: torch.Tensor, group,
+                        distance: str = "cosine", lam: float = 10.0,
+                        n_iter: int = 30) -> torch.Tensor:
+    """The materialized :func:`strotss_torch.ops.losses.sinkhorn` of
+    (x, y) (``n_iter`` log-domain iterations, uniform marginals, then
+    <T, C>) with x's rows split over the process group ``group``; the
+    same value on every rank of the group, and each input's whole
+    gradient through the unrolled iterations."""
+    x, y = reshape_2d(_f32(x)), reshape_2d(_f32(y))
+    p, r = dist.get_world_size(group), dist.get_rank(group)
+    n, m = x.shape[0], y.shape[0]
+    x = _Replicated.apply(x, group)
+    y = _Replicated.apply(y, group)
+    c = dist_metrics[distance](torch.tensor_split(x, p)[r], y)
+    log_k = -lam * c
+    # the marginals of the whole problem, not of the shard
+    log_p = torch.full((c.shape[0],), -math.log(n), dtype=c.dtype,
+                       device=c.device)
+    log_q = torch.full((m,), -math.log(m), dtype=c.dtype, device=c.device)
+
+    def body(log_u, log_v):
+        log_v = _Replicated.apply(log_v, group)
+        log_u = log_p - torch.logsumexp(log_k + log_v[None, :], dim=1)
+        z = log_k + log_u[:, None]
+        top = torch.amax(z.detach(), dim=0)
+        dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+        s = _Summed.apply(torch.sum(torch.exp(z - top[None, :]), dim=0),
+                          group)
+        return log_u, log_q - (top + torch.log(s))
+
+    log_u, log_v = c.new_zeros(c.shape[0]), c.new_zeros(m)
+    for _ in range(n_iter):
+        # as in the plain route: recompute each iteration in the backward
+        log_u, log_v = checkpoint(body, log_u, log_v, use_reentrant=False)
+    log_t = (log_u[:, None] + log_k
+             + _Replicated.apply(log_v, group)[None, :])
+    return _Summed.apply(torch.sum(torch.exp(log_t) * c), group)
 
 
 def relaxed_emd_sharded(x: torch.Tensor, y: torch.Tensor, mesh,

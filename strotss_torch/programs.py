@@ -15,13 +15,16 @@ on B pairs' images and sums the pairs' losses. PyTorch runs eagerly, so
 the JAX package's per-scale compiled programs become a Python loop over
 steps (and over regions and pairs).
 
-Under ``shard_samples`` both REMD terms split the style targets' rows
-over the mesh's 'sample' ranks (:mod:`strotss_torch.parallel.transport`,
-K1 on each rank's shard); the content loss (K2a, K2b) and the moments
-stay whole on every rank, since K2a has no row-range interface. The JAX
-package forces its plain XLA losses under sharding
-(``strotss_tpu/programs.py:111-118``); the port keeps its kernels, which
-run on one rank's tensors.
+Under ``shard_samples`` both transport terms, REMD or Sinkhorn, split
+the style targets' rows over the mesh's 'sample' ranks
+(:mod:`strotss_torch.parallel.transport`: K1 on each rank's shard, or
+the materialized Sinkhorn on each rank's rows of the cost matrix); the
+content loss (K2a, K2b) and the moments stay whole on every rank, since
+K2a has no row-range interface. The JAX package forces its plain XLA
+losses under sharding (``strotss_tpu/programs.py:111-118``); the port
+keeps its REMD and self-similarity kernels, which run on one rank's
+tensors and compute the same function, and takes the materialized
+Sinkhorn, whose gradient is the reference's.
 """
 
 from __future__ import annotations
@@ -55,8 +58,8 @@ class StepSpec(NamedTuple):
     ``remd_impl`` is the Sinkhorn route (``'auto'``: the memory gate;
     ``'plain'``: materialized at every size). ``block1_impl`` is VGG
     block1's route for the run's device, ``'pallas'`` (fused, kernel K3)
-    or ``'xla'`` (``F.conv2d``). ``shard_samples``: both REMD terms split
-    the style samples over the mesh's 'sample' axis
+    or ``'xla'`` (``F.conv2d``). ``shard_samples``: both transport terms
+    split the style samples over the mesh's 'sample' axis
     (:mod:`strotss_torch.parallel.transport`); the process group comes to
     :func:`step_losses` as an argument. ``shard_spatial``: VGG runs on
     each rank's rows of the image over the mesh's 'spatial' axis
@@ -106,13 +109,15 @@ def spec_from_config(cfg: StrotssConfig, device="cpu",
                      masked: bool = False, batched: bool = False) -> StepSpec:
     """The step's static configuration for a run on ``device``.
 
-    A masked or batched Sinkhorn run takes the materialized Sinkhorn with
-    its unrolled gradient at every size, as the JAX package's masked and
-    batched paths do (``strotss_tpu/programs.py:88``): crossing the memory
-    gate would change the gradient estimator and so the result. A Sinkhorn
-    step runs no REMD, so ``remd_impl`` carries that route;
-    self-similarity, and REMD on such a run without Sinkhorn, keep their
-    kernels, since any route computes the same function.
+    A masked, batched, ``shard_samples`` or ``shard_spatial`` Sinkhorn
+    run takes the materialized Sinkhorn with its unrolled gradient at
+    every size, as the JAX package's masked and batched paths
+    (``strotss_tpu/programs.py:88``) and its sharded ones (line 115, the
+    materialized solve that GSPMD partitions) do: crossing the memory gate
+    would change the gradient estimator and so the result. A Sinkhorn step
+    runs no REMD, so ``remd_impl`` carries that route; self-similarity,
+    and REMD on such a run without Sinkhorn, keep their kernels, since any
+    route computes the same function.
     """
     impl = "auto" if cfg.use_pallas else "plain"
     return StepSpec(
@@ -124,7 +129,8 @@ def spec_from_config(cfg: StrotssConfig, device="cpu",
         use_sinkhorn=cfg.use_sinkhorn,
         sinkhorn_lambda=cfg.sinkhorn_lambda,
         sinkhorn_iters=cfg.sinkhorn_iters,
-        remd_impl=("plain" if (masked or batched) and cfg.use_sinkhorn
+        remd_impl=("plain" if (masked or batched or cfg.shard_samples
+                                or cfg.shard_spatial) and cfg.use_sinkhorn
                    else impl),
         selfsim_impl=impl,
         block1_impl=_block1_route(cfg, device),
@@ -328,23 +334,32 @@ def step_losses(spec: StepSpec, content_feats, pred, style_targets,
     (``strotss_tpu/programs.py:663-675``). ``weights``: K floats that
     replace the 1/K of the mean (a batch's ``region_valid`` weights).
 
-    Under ``spec.shard_samples`` both REMD terms split the style targets'
-    rows over ``sample_group`` (the mesh's 'sample' process group), K1
-    running on each rank's shard. The content loss (K2a, K2b) and the
-    moments stay whole on every rank: K2a has no row-range interface, and
-    at N = 1024 the pair takes 0.491 ms of device time a step on an NVIDIA
-    H100 80GB HBM3 at 700 W (PERF.md's kernel table, K2 row), the most a
-    split could save.
+    Under ``spec.shard_samples`` both transport terms split the style
+    targets' rows over ``sample_group`` (the mesh's 'sample' process
+    group): REMD with K1 running on each rank's shard, Sinkhorn with each
+    rank's rows of the materialized cost matrix. The content loss (K2a,
+    K2b) and the moments stay whole on every rank: K2a has no row-range
+    interface, and at N = 1024 the pair takes 0.491 ms of device time a
+    step on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md's kernel table, K2
+    row), the most a split could save.
     """
     denom = 2.0 + alpha + 1.0 / max(alpha, 1.0)
-    remd = None
+    remd = sinkhorn = None
     if spec.shard_samples:
-        from strotss_torch.parallel.transport import remd_over_group
+        from strotss_torch.parallel.transport import (
+            remd_over_group,
+            sinkhorn_over_group,
+        )
 
+        # the prediction whole on every rank, the targets split
         def remd(target, p_feat, distance):
-            # the prediction whole on every rank, the targets split
             return remd_over_group(p_feat, target, sample_group, distance,
                                    spec.remd_impl)
+
+        def sinkhorn(target, p_feat, distance):
+            return sinkhorn_over_group(target, p_feat, sample_group,
+                                       distance, spec.sinkhorn_lambda,
+                                       spec.sinkhorn_iters)
     k = coords.shape[0]
     lc = ls = 0.0
     for r, (xy, target, tmom) in enumerate(zip(coords, style_targets,
@@ -356,7 +371,7 @@ def step_losses(spec: StepSpec, content_feats, pred, style_targets,
                           sinkhorn_lambda=spec.sinkhorn_lambda,
                           sinkhorn_iters=spec.sinkhorn_iters,
                           remd_impl=spec.remd_impl, target_moments=tmom,
-                          remd=remd)
+                          remd=remd, sinkhorn=sinkhorn)
         if weights is None:
             lc, ls = lc + lc_r / k, ls + ls_r / k
         else:

@@ -12,10 +12,11 @@ the regions), a blend of several styles (the style target mixes samples
 of each style in proportion to its weight), a warm start from an image,
 skipped coarse scales (``start_level``) and checkpoints that an
 interrupted run resumes from. Under a mesh every rank runs the loop,
-``cfg.shard_samples`` splits the REMD terms' style samples over the
-mesh's 'sample' axis, and ``cfg.shard_spatial`` runs VGG (the per-scale
-content and style extractions and every step's forward and backward) on
-each rank's rows of the images over its 'spatial' axis
+``cfg.shard_samples`` splits the transport terms' style samples (REMD
+or Sinkhorn) over the mesh's 'sample' axis, and ``cfg.shard_spatial``
+runs VGG (the per-scale content and style extractions and every step's
+forward and backward) on each rank's rows of the images over its
+'spatial' axis
 (:mod:`strotss_torch.parallel.spatial`; the content features stay split
 for the scale). Every rank then holds a replica of the pyramid: the
 run takes PyTorch's deterministic algorithms, and the replicas are
@@ -113,8 +114,7 @@ def sample_group(cfg: StrotssConfig, mesh, entry: str, example: str):
     """The up-front mesh contracts of ``entry`` (``strotss_tpu/solve.py:
     226-242``), and the process groups of the mesh's 'sample' axis under
     ``cfg.shard_samples`` and of its 'spatial' axis under
-    ``cfg.shard_spatial`` (each else None). ``shard_samples`` with
-    ``use_sinkhorn`` is not ported (ROADMAP.md Queue 1 item 17)."""
+    ``cfg.shard_spatial`` (each else None)."""
     names = () if mesh is None else tuple(mesh.mesh_dim_names or ())
     # a silent single-device run would betray the explicit request
     if cfg.shard_spatial and "spatial" not in names:
@@ -125,11 +125,6 @@ def sample_group(cfg: StrotssConfig, mesh, entry: str, example: str):
         raise ValueError(
             "cfg.shard_samples needs a mesh with a 'sample' axis — pass "
             f"{entry}(..., mesh=make_mesh({example}))")
-    if cfg.shard_samples and cfg.use_sinkhorn:
-        raise NotImplementedError(
-            "StrotssConfig.shard_samples with use_sinkhorn is not ported to "
-            "strotss_torch yet (ROADMAP.md Queue 1 item 17): shard_samples "
-            "splits REMD's style samples only")
     return (mesh.get_group("sample") if cfg.shard_samples else None,
             mesh.get_group("spatial") if cfg.shard_spatial else None)
 
@@ -299,11 +294,11 @@ def stylize_single(
 
     ``mesh`` (:func:`strotss_torch.parallel.make_mesh`): every rank of it
     calls with the same inputs, on its own device, and returns the whole
-    result. Under ``cfg.shard_samples`` the REMD terms split the style
-    samples over its 'sample' axis, under ``cfg.shard_spatial`` VGG runs
-    on each rank's rows of the images over its 'spatial' axis; every rank
-    draws the same coordinates from the same seeded generators, with no
-    traffic. Only rank 0 writes
+    result. Under ``cfg.shard_samples`` the transport terms split the
+    style samples over its 'sample' axis, under ``cfg.shard_spatial`` VGG
+    runs on each rank's rows of the images over its 'spatial' axis; every
+    rank draws the same coordinates from the same seeded generators, with
+    no traffic. Only rank 0 writes
     checkpoints and calls ``snapshot_cb``; every rank calls
     ``progress_cb``.
     """

@@ -151,16 +151,31 @@ class _SampleMesh:
     def get_rank(self):
         return 0
 
+    def get_group(self, axis):
+        return f"{axis} group"
 
-def test_api_sharding_still_unported():
-    """``shard_samples`` with ``use_sinkhorn`` is not ported (ROADMAP.md
-    Queue 1 item 17); ``shard_samples`` without a mesh is refused with the
-    JAX package's error (``strotss_tpu/solve.py:237-250``)."""
+
+def test_api_sharding_contracts():
+    """``shard_samples`` with ``use_sinkhorn`` passes the contracts on a
+    mesh with a 'sample' axis and takes the materialized Sinkhorn at
+    every size, as the JAX package's sharded runs do; ``shard_spatial``
+    on a mesh without a 'spatial' axis and ``shard_samples`` without a
+    mesh are refused with the JAX package's errors
+    (``strotss_tpu/solve.py:237-250``)."""
+    from strotss_torch.ops.losses import sinkhorn_route
+    from strotss_torch.programs import spec_from_config
+    from strotss_torch.solve import sample_group
+
     img = np.zeros((1, 8, 8, 3), np.float32)
     cfg = strotss_torch.StrotssConfig(shard_samples=True, use_sinkhorn=True)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        strotss_torch.stylize(img, img, cfg, device="cpu",
-                              mesh=_SampleMesh())
+    assert sample_group(cfg, _SampleMesh(), "stylize", "(N,)") == (
+        "sample group", None)
+    spec = spec_from_config(cfg, "cpu")
+    assert sinkhorn_route(32769, 32769, spec.remd_impl) == "plain"
+    with pytest.raises(ValueError, match="needs a mesh with a 'spatial'"):
+        strotss_torch.stylize(img, img, strotss_torch.StrotssConfig(
+            shard_spatial=True, use_sinkhorn=True), device="cpu",
+            mesh=_SampleMesh())
     cfg = strotss_torch.StrotssConfig(shard_samples=True)
     with pytest.raises(ValueError) as got:
         strotss_torch.stylize(img, img, cfg, device="cpu")

@@ -1,13 +1,14 @@
 """The port's multi-device half (``strotss_torch.parallel``: ``make_mesh``,
-the launcher, the sample-sharded REMD, ``stylize(mesh=)`` under
-``shard_samples``, ``stylize_batch(mesh=)`` and serve's
+the launcher, the sample-sharded REMD and Sinkhorn, ``stylize(mesh=)``
+under ``shard_samples``, ``stylize_batch(mesh=)`` and serve's
 ``--data_devices``) on the CPU: ranks are processes of the launcher,
 joined over gloo, one thread each.
 
 The sharded REMD is held to the JAX package's ``relaxed_emd`` and, on 8
-ranks, to its ``relaxed_emd_sharded`` on the 8-device CPU mesh: values
-to rtol 1e-5, gradients to 1e-4 of max|g| (a gradient scaled by the
-world size fails by far). Sharded runs are held to the port's unsharded
+ranks, to its ``relaxed_emd_sharded`` on the 8-device CPU mesh; the
+sharded Sinkhorn to its materialized ``sinkhorn(impl='xla')``, which
+GSPMD partitions under ``shard_samples``: values to rtol 1e-5, gradients
+to 1e-4 of max|g| (a gradient scaled by the world size fails by far). Sharded runs are held to the port's unsharded
 runs with the JAX test's own tolerance (``tests/test_parallel.py:
 264-292``: rtol 2e-4, atol 1e-5), every rank's result bit for bit the
 others'; a batch over a 'data' mesh is the unsharded batch bit for bit
@@ -235,6 +236,71 @@ def test_sharded_remd_matches_jax_sharded_on_8(remd_runs, distance):
             _close_grad(dx, gx)
 
 
+# --- (3b) the sample-sharded Sinkhorn ---------------------------------------
+
+SINKHORN_DISTANCES = ("cosine", "both")
+#: lam and iterations of the sharded Sinkhorn's cases
+SINKHORN_LAM, SINKHORN_ITERS = 10.0, 20
+
+
+def _sinkhorn_cases(p):
+    """Per distance: a wide case (N = 1.5 M) and a tall one (N = M / 2),
+    N the split rows; at p = 3, M = 101: 151 rows as 51/50/50 and 50 as
+    17/17/16."""
+    rng = np.random.default_rng(30 + p)
+    m = 101 if p == 3 else 64
+    cases = {}
+    for distance in SINKHORN_DISTANCES:
+        for shape, n, mm, c in (("wide", 3 * m // 2, m, 12),
+                                ("tall", m // 2, 2 * m, 6)):
+            cases[distance, shape] = (
+                rng.standard_normal((n, c)).astype(np.float32),
+                rng.standard_normal((mm, c)).astype(np.float32), distance)
+    return cases
+
+
+@pytest.fixture(scope="module")
+def sinkhorn_runs():
+    cache = {}
+
+    def runs(p):
+        if p not in cache:
+            cases = _sinkhorn_cases(p)
+            ranks = _launch(R.sharded_sinkhorn, p, list(cases.values()),
+                            SINKHORN_LAM, SINKHORN_ITERS)
+            cache[p] = {key: (case, [r[k] for r in ranks])
+                        for k, (key, case) in enumerate(cases.items())}
+        return cache[p]
+    return runs
+
+
+@pytest.mark.parametrize("p", [2, 3])
+@pytest.mark.parametrize("distance", SINKHORN_DISTANCES)
+@pytest.mark.parametrize("shape", ["wide", "tall"])
+def test_sharded_sinkhorn_matches_jax_sinkhorn(sinkhorn_runs, p, distance,
+                                               shape):
+    (x, y, d), ranks = sinkhorn_runs(p)[distance, shape]
+    if p == 3:
+        assert x.shape[0] % 3  # the shards are uneven
+    fn = lambda a, b: JL.sinkhorn(  # noqa: E731
+        a, b, d, SINKHORN_LAM, SINKHORN_ITERS, impl="xla")
+    ref = float(fn(jnp.asarray(x), jnp.asarray(y)))
+    gx, gy = map(np.asarray, jax.grad(fn, argnums=(0, 1))(jnp.asarray(x),
+                                                           jnp.asarray(y)))
+    for value, dx, dy in ranks:
+        np.testing.assert_allclose(value, ref, rtol=1e-5)
+        _close_grad(dx, gx)
+        _close_grad(dy, gy)
+        # a gradient scaled by p (the world size) is p - 1 max|g| off
+        assert not np.allclose(dx, p * gx, atol=1e-6)
+        assert not np.allclose(dy, p * gy, atol=1e-6)
+    # every rank holds the same bits
+    for value, dx, dy in ranks[1:]:
+        assert value == ranks[0][0]
+        assert np.array_equal(dx, ranks[0][1])
+        assert np.array_equal(dy, ranks[0][2])
+
+
 # --- (4) stylize(mesh=) under shard_samples --------------------------------
 
 def _masks():
@@ -253,42 +319,70 @@ def shard_runs():
                                    _masks())
 
 
-@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("masked,use_sinkhorn", [
+    pytest.param(False, False, id="False"),
+    pytest.param(True, False, id="True"),
+    pytest.param(False, True, id="False-sinkhorn"),
+    pytest.param(True, True, id="True-sinkhorn")])
 def test_shard_samples_matches_unsharded(shard_runs, params, one_thread,
-                                         masked):
+                                         masked, use_sinkhorn):
+    """The unsharded run takes the materialized Sinkhorn too (below the
+    memory gate), as the sharded one does at every size."""
     content, style, ranks = shard_runs
     cfg = strotss_torch.StrotssConfig(levels=1, max_iter=3, log_every=3,
-                                      **R.TINY)
+                                      use_sinkhorn=use_sinkhorn, **R.TINY)
     kw = {}
     if masked:
         kw = dict(zip(("content_masks", "style_masks"), _masks()))
     _, ref = strotss_torch.stylize(content, style, cfg, vgg_params=params,
                                    device="cpu", **kw)
-    curve, img = ranks[0][masked]
+    curve, img = ranks[0][use_sinkhorn, masked]
     np.testing.assert_allclose(curve, ref["scales"][0]["curve"], rtol=2e-4,
                                atol=1e-5)
     assert np.all(np.isfinite(img))
     # both ranks hold the same pyramid: the same image and curve, bit for bit
-    assert np.array_equal(ranks[1][masked][0], curve)
-    assert np.array_equal(ranks[1][masked][1], img)
+    assert np.array_equal(ranks[1][use_sinkhorn, masked][0], curve)
+    assert np.array_equal(ranks[1][use_sinkhorn, masked][1], img)
 
 
 def test_stylize_mesh_contracts():
+    """The mesh contracts that remain under ``shard_samples`` with
+    ``use_sinkhorn``: a 'sample' axis for ``stylize``, a 'data' axis for
+    ``stylize_batch``; given those, the sample group comes back and the
+    Sinkhorn takes the materialized solve at every size."""
+    from strotss_torch import solve
+    from strotss_torch.ops.losses import sinkhorn_route
+    from strotss_torch.programs import spec_from_config
+
     img = np.zeros((1, 8, 8, 3), np.float32)
     cfg = strotss_torch.StrotssConfig(shard_samples=True, use_sinkhorn=True)
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(ValueError, match="needs a mesh with a 'sample'"):
         strotss_torch.stylize(img, img, cfg, device="cpu",
-                              mesh=_SampleMesh())
+                              mesh=_SampleMesh(("data",)))
+    with pytest.raises(ValueError, match="over the mesh's 'data' axis"):
+        stylize_batch(img, img, cfg, device="cpu", mesh=_SampleMesh())
+    assert solve.sample_group(cfg, _SampleMesh(), "stylize", "(N,)") == (
+        "sample group", None)
+    for batched in (False, True):
+        spec = spec_from_config(cfg, "cpu", batched=batched)
+        assert spec.shard_samples and spec.remd_impl == "plain"
+        assert sinkhorn_route(32769, 32769, spec.remd_impl) == "plain"
 
 
 class _SampleMesh:
-    """A mesh that has a 'sample' axis (the contracts read its names)."""
+    """A mesh that has a 'sample' axis (the contracts read its names and
+    take its groups)."""
 
-    mesh_dim_names = ("sample",)
     device_type = "cpu"
+
+    def __init__(self, names=("sample",)):
+        self.mesh_dim_names = names
 
     def get_rank(self):
         return 0
+
+    def get_group(self, axis):
+        return f"{axis} group"
 
 
 # --- (5) stylize_batch(mesh=) ----------------------------------------------
@@ -314,19 +408,30 @@ def test_batch_over_data_mesh_is_bitwise(batch_inputs, params, one_thread):
         assert np.array_equal(r_curves[0], info["scales"][0]["curve"])
 
 
-def test_batch_over_data_sample_mesh(batch_inputs, params, one_thread):
+def _batch_over_data_sample_mesh(batch_inputs, params, **cfg_kw):
     contents, styles, seeds = batch_inputs
     ranks = _launch(R.batch_run, 4, contents, styles, (2, 2),
-                    ("data", "sample"), dict(BATCH_CFG, shard_samples=True),
-                    seeds)
+                    ("data", "sample"),
+                    dict(BATCH_CFG, shard_samples=True, **cfg_kw), seeds)
     _, info = stylize_batch(contents, styles,
-                            strotss_torch.StrotssConfig(**BATCH_CFG),
+                            strotss_torch.StrotssConfig(**BATCH_CFG,
+                                                        **cfg_kw),
                             params, pair_seeds=seeds, device="cpu")
     np.testing.assert_allclose(ranks[0][2][0], info["scales"][0]["curve"],
                                rtol=2e-4, atol=1e-5)
     for r in ranks[1:]:
         assert np.array_equal(r[0], ranks[0][0])
         assert np.array_equal(r[1], ranks[0][1])
+
+
+def test_batch_over_data_sample_mesh(batch_inputs, params, one_thread):
+    _batch_over_data_sample_mesh(batch_inputs, params)
+
+
+def test_batch_over_data_sample_mesh_sinkhorn(batch_inputs, params,
+                                              one_thread):
+    """Each pair's Sinkhorn terms split over the 'sample' axis."""
+    _batch_over_data_sample_mesh(batch_inputs, params, use_sinkhorn=True)
 
 
 # --- (6) checkpoints under a mesh ------------------------------------------

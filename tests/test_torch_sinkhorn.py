@@ -187,6 +187,33 @@ def test_sinkhorn_and_style_loss_route_by_shape(monkeypatch):
     assert calls == ["kernel", "kernel", "plain", "plain"]
 
 
+@pytest.mark.parametrize("use_pallas", [True, False])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("batched", [False, True])
+@pytest.mark.parametrize("shard_samples", [False, True])
+@pytest.mark.parametrize("shard_spatial", [False, True])
+def test_sinkhorn_route_of_every_path_is_the_jax_one(
+        use_pallas, masked, batched, shard_samples, shard_spatial):
+    """Above the gate (N = M = 32769) a Sinkhorn run streams exactly where
+    the JAX package's ``spec_from_config`` leaves ``remd_impl='auto'``
+    and takes the materialized solve where it pins ``'xla'``: masked,
+    batched, sample-sharded and spatially sharded runs, and
+    ``use_pallas=False``."""
+    from strotss_torch.programs import spec_from_config
+    from strotss_tpu.programs import spec_from_config as jax_spec
+
+    kw = dict(use_pallas=use_pallas, use_sinkhorn=True, sample_size=32769,
+              shard_samples=shard_samples, shard_spatial=shard_spatial)
+    want = jax_spec(JaxConfig(**kw), masked=masked,
+                    batched=batched).remd_impl
+    assert want in ("auto", "xla")
+    spec = spec_from_config(strotss_torch.StrotssConfig(**kw), "cpu",
+                            masked=masked, batched=batched)
+    n = spec.sample_size
+    assert TL.sinkhorn_route(n, n, spec.remd_impl) == (
+        "kernel" if want == "auto" else "plain")
+
+
 # --- the style loss, a whole run, the CLI -------------------------------------
 
 def test_style_loss_sinkhorn_matches_jax():

@@ -1,7 +1,8 @@
 """``stylize(..., StrotssConfig(shard_spatial=True), mesh=...)`` on CPU
 ranks against the port's unsharded run, and with what it composes with:
 masks, blended styles, ``remat``, checkpoint and resume, ``use_sinkhorn``
-below the gate and the 2-D ('spatial', 'sample') mesh.
+(the materialized solve, as at every size under sharding) and the 2-D
+('spatial', 'sample') mesh, with REMD or Sinkhorn split over 'sample'.
 
 VGG16 with its 9 taps, float32, 40x40 images (64x64 at the first scale:
 slabs of 32/32 rows on 2 ranks, 16 a rank on 4, down to 1 or 2 rows at
@@ -80,9 +81,11 @@ RUNS = {
 }
 MESH_RUNS = {
     # p = 4 on a 1-D mesh, and the 2x2 ('spatial', 'sample') mesh with
-    # REMD's style samples split over 'sample'
+    # the transport terms' style samples (REMD's or Sinkhorn's) split over
+    # 'sample'
     4: ((4,), ("spatial",), ["plain", "two_scales"]),
-    "2x2": ((2, 2), ("spatial", "sample"), ["plain", "two_scales"]),
+    "2x2": ((2, 2), ("spatial", "sample"),
+            ["plain", "two_scales", "sinkhorn"]),
 }
 
 

@@ -84,6 +84,22 @@ def sharded_remd(cases, device="cpu"):
     return out
 
 
+def sharded_sinkhorn(cases, lam, n_iter):
+    """For each (x, y, distance): ``sinkhorn_over_group`` with x's rows
+    split over every rank, its value and the gradients of x and y."""
+    from strotss_torch.parallel.transport import sinkhorn_over_group
+
+    out = []
+    for x, y, distance in cases:
+        xt = torch.tensor(x, requires_grad=True)
+        yt = torch.tensor(y, requires_grad=True)
+        loss = sinkhorn_over_group(xt, yt, dist.group.WORLD, distance, lam,
+                                   n_iter)
+        loss.backward()
+        out.append((loss.item(), xt.grad.numpy(), yt.grad.numpy()))
+    return out
+
+
 def _params():
     return random_params("16", seed=0)
 
@@ -91,19 +107,24 @@ def _params():
 def shard_samples_runs(content, style, masks, shape=(2,),
                        names=("sample",)):
     """``stylize`` under ``shard_samples`` on a 'sample' mesh: the tiny
-    one-scale run of ``tests/test_parallel.py:264-292``, without and (if
-    ``masks``) with region masks. Returns (curve, float image) per run."""
+    one-scale run of ``tests/test_parallel.py:264-292``, with REMD and
+    with Sinkhorn, without and (if ``masks``) with region masks. Returns (curve, float image) per run,
+    by (use_sinkhorn, masked)."""
     mesh = make_mesh(shape, names)
-    cfg = strotss_torch.StrotssConfig(levels=1, max_iter=3, log_every=3,
-                                      shard_samples=True, **TINY)
     params = _params()
-    out = []
-    for kw in [{}] + ([dict(content_masks=masks[0], style_masks=masks[1])]
-                      if masks is not None else []):
-        _, info = strotss_torch.stylize(content, style, cfg,
-                                        vgg_params=params, mesh=mesh, **kw)
-        out.append((info["scales"][0]["curve"],
-                    info["stylized"].cpu().numpy()))
+    out = {}
+    for use_sinkhorn in (False, True):
+        cfg = strotss_torch.StrotssConfig(
+            levels=1, max_iter=3, log_every=3, shard_samples=True,
+            use_sinkhorn=use_sinkhorn, **TINY)
+        for kw in [{}] + ([dict(content_masks=masks[0],
+                                style_masks=masks[1])]
+                          if masks is not None else []):
+            _, info = strotss_torch.stylize(content, style, cfg,
+                                            vgg_params=params, mesh=mesh,
+                                            **kw)
+            out[use_sinkhorn, bool(kw)] = (info["scales"][0]["curve"],
+                                           info["stylized"].cpu().numpy())
     return out
 
 
