@@ -698,11 +698,11 @@ def check_block1_batch(b, h, w, seed, rates):
     g2 = _inputs(seed + 5, (b, h, w, 64))
     name = f"block1 {b}x{h}x{w}"
 
-    before = (B.block1_fwd.launches, B.block1_bwd.launches)
+    before = _launches()
     t1, t2 = B.block1_fwd(x, k1, b1, k2, b2)
     dx = B.block1_bwd(t1, t2, g1, g2, k1, k2)
-    check((B.block1_fwd.launches - before[0],
-           B.block1_bwd.launches - before[1]) == (1, 1),
+    made = _launches(before)
+    check((made["block1_fwd"], made["block1_bwd"]) == (1, 1),
           f"{name}: a batch must be one launch a direction")
     for i in range(b):
         o1, o2 = B.block1_fwd(x[i], k1, b1, k2, b2)
@@ -924,16 +924,15 @@ def check_streamed(n, c, distance, seed):
     import torch
 
     from strotss_torch.ops import losses
-    from strotss_torch.ops.kernels import sinkhorn
 
     lam, iters = 10.0, 30
     x, y = _sinkhorn_rows(seed, n, n, c, distance)
     yk = y.clone().requires_grad_(True)
-    before = (sinkhorn.lse_pass.launches, sinkhorn.prepare.launches)
+    before = _launches()
     val = losses.sinkhorn(x, yk, distance, lam, iters, impl="kernel")
     (gk,) = torch.autograd.grad(val, [yk])
-    launches = sinkhorn.lse_pass.launches - before[0]
-    preps = sinkhorn.prepare.launches - before[1]
+    made = _launches(before)
+    launches, preps = made["sinkhorn_lse"], made["sinkhorn_prep"]
     yp = y.clone().requires_grad_(True)
     plain = losses.sinkhorn(x, yp, distance, lam, iters, impl="plain")
     (gu,) = torch.autograd.grad(plain, [yp])
@@ -1153,16 +1152,29 @@ def phase_slice(vgg_params):
               f"slice: {k} {max(err[k])} > {limit} at the same state")
 
 
-def _counted():
-    """Each kernel's wrapper, by the kernel's name in the kernels line."""
-    from strotss_torch.ops.kernels import block1, remd, selfsim, sinkhorn
+#: the kernels whose wrappers count their launches (``launch.<name>``),
+#: by the kernel's name in the kernels line
+KERNELS = ("remd_mins", "selfsim_fwd", "selfsim_bwd", "block1_fwd",
+           "block1_bwd", "sinkhorn_lse", "sinkhorn_prep")
 
-    return {"remd_mins": remd.mins, "selfsim_fwd": selfsim.selfsim_fwd,
-            "selfsim_bwd": selfsim.selfsim_bwd,
-            "block1_fwd": block1.block1_fwd,
-            "block1_bwd": block1.block1_bwd,
-            "sinkhorn_lse": sinkhorn.lse_pass,
-            "sinkhorn_prep": sinkhorn.prepare}
+
+def _launches(since=None):
+    """Each kernel's launches so far, less those of ``since`` (an earlier
+    reading)."""
+    from strotss_torch.utils import timing
+
+    now = timing.counters()
+    return {k: now.get("launch." + k, 0) - (since or {}).get(k, 0)
+            for k in KERNELS}
+
+
+def _unlaunch(saved):
+    """Set the launch counters back to ``saved`` (an earlier reading), so
+    that a check's own launches do not count."""
+    from strotss_torch.utils import timing
+
+    for k, n in _launches(saved).items():
+        timing.count("launch." + k, -n)
 
 
 def _run_counted(content, style, cfg, **kw):
@@ -1176,15 +1188,13 @@ def _run_counted(content, style, cfg, **kw):
 
     import strotss_torch
 
-    counted = _counted()
-    for fn in counted.values():
-        fn.launches = 0
+    before = _launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     img, info = strotss_torch.stylize(content, style, cfg, **kw)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counted.items()}
+    launches = _launches(before)
     summary = {"content": list(content.shape),
                "style": ([list(x.shape) for x in style]
                          if isinstance(style, list) else list(style.shape)),
@@ -1387,12 +1397,11 @@ def _masked_step(vgg_params, content, style, cmasks_raw, smasks_raw):
                           for m in cmasks])
     leaves = [p.contiguous().requires_grad_(True) for p in pyramid]
     pred = programs.extract_hypercolumn(vgg, fold_laplacian_pyramid(leaves))
-    counted = _counted()
-    before = {k: fn.launches for k, fn in counted.items()}
+    before = _launches()
     got = programs.step_losses(spec_k, content_feats, pred, targets, moments,
                                cfg.initial_alpha(), coords)
     grads = torch.autograd.grad(got[0], leaves)
-    launched = {k: fn.launches - before[k] for k, fn in counted.items()}
+    launched = _launches(before)
     with torch.no_grad():
         want = programs.step_losses(spec_p, content_feats, pred, targets,
                                     moments, cfg.initial_alpha(), coords)
@@ -1468,15 +1477,13 @@ def _run_batch_counted(contents, styles, cfg, **kw):
 
     from strotss_torch.parallel import stylize_batch
 
-    counted = _counted()
-    for fn in counted.values():
-        fn.launches = 0
+    before = _launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     imgs, info = stylize_batch(contents, styles, cfg, device="cuda", **kw)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counted.items()}
+    launches = _launches(before)
     summary = {"contents": list(contents.shape),
                "styles": list(styles.shape), "output": list(imgs.shape),
                "seconds": seconds, "stylize_seconds": info["seconds"],
@@ -2210,9 +2217,9 @@ def _rank_remd(cases):
                 "colmin": torch.equal(col_min, full[1]),
                 "colarg": torch.equal(col_arg, full[3])}
         xs = x.clone().requires_grad_(True)
-        remd.mins.launches = 0
+        before = _launches()
         loss = remd_over_group(xs, y, dist.group.WORLD, distance)
-        launches = remd.mins.launches
+        launches = _launches(before)["remd_mins"]
         g, = torch.autograd.grad(loss, xs)
         xu = x.clone().requires_grad_(True)
         ref = relaxed_emd(xu, y, distance)
@@ -2293,14 +2300,13 @@ def _rank_shard_samples(content, style, cfg):
     from strotss_torch.parallel import make_mesh
 
     mesh = make_mesh((dist.get_world_size(),), ("sample",), devices="cuda")
-    counted = _counted()
     held, digests, grad_errs = [], [], []
     step_losses, optimization_steps = (programs.step_losses,
                                        solve.optimization_steps)
 
     def held_step(spec, *a, **k):
         out = step_losses(spec, *a, **k)
-        saved = {name: fn.launches for name, fn in counted.items()}
+        saved = _launches()
         # the gradients with respect to float32 copies of the taps (a bf16
         # tap's gradient would round each side to bf16 apart); the losses
         # sample the taps in float32, so the values are the step's
@@ -2314,8 +2320,7 @@ def _rank_shard_samples(content, style, cfg):
         grad_errs.append(_grad_err(torch.cat([t.reshape(-1) for t in g]),
                                    torch.cat([t.reshape(-1) for t in gu])))
         ref = [t.detach() for t in ref]
-        for name, fn in counted.items():
-            fn.launches = saved[name]
+        _unlaunch(saved)
         held.append((torch.stack(out).detach(), torch.stack(ref)))
         return out
 
@@ -2328,11 +2333,10 @@ def _rank_shard_samples(content, style, cfg):
     programs.step_losses = held_step
     solve.optimization_steps = steps_then_digest
     try:
-        for fn in counted.values():
-            fn.launches = 0
+        before = _launches()
         _, info = strotss_torch.stylize(content, style, cfg, mesh=mesh)
         torch.cuda.synchronize()
-        launches = {name: fn.launches for name, fn in counted.items()}
+        launches = _launches(before)
     finally:
         programs.step_losses = step_losses
         solve.optimization_steps = optimization_steps
@@ -2369,10 +2373,8 @@ def _rank_batch(contents, styles, steps, seeds, alphas, halves=False):
 
     mesh = make_mesh((dist.get_world_size(),), ("data",), devices="cuda")
     cfg = strotss_torch.StrotssConfig(max_iter=steps)
-    counted = _counted()
     dist.barrier()
-    for fn in counted.values():
-        fn.launches = 0
+    before = _launches()
     fill = torch.utils.deterministic.fill_uninitialized_memory
     torch.use_deterministic_algorithms(True, warn_only=True)
     torch.utils.deterministic.fill_uninitialized_memory = False
@@ -2389,7 +2391,7 @@ def _rank_batch(contents, styles, steps, seeds, alphas, halves=False):
            "stylized": info["stylized"].cpu().numpy(),
            "curves": [sc["curve"] for sc in info["scales"]],
            "seconds": seconds,
-           "launches": {name: fn.launches for name, fn in counted.items()}}
+           "launches": _launches(before)}
     if halves:
         b = len(seeds) // 2
         out["halves"] = [_rank_batch(contents[h], styles[h], steps,
@@ -2468,7 +2470,6 @@ def _rank_spatial(content, style, steps, **cfg_kw):
     mesh = make_mesh((dist.get_world_size(),), ("spatial",), devices="cuda")
     cfg = strotss_torch.StrotssConfig(max_iter=steps, shard_spatial=True,
                                       **cfg_kw)
-    counted = _counted()
     held, digests = [], []
     run_steps = solve.optimization_steps
 
@@ -2484,7 +2485,7 @@ def _rank_spatial(content, style, steps, **cfg_kw):
 
     def held_steps(spec, n, vgg, content_feats, targets, moments, alpha,
                    pyramid, opt, coords_fn, group=None, spatial=None):
-        saved = {name: fn.launches for name, fn in counted.items()}
+        saved = _launches()
         whole = programs.extract_hypercolumn(vgg, content_feats.image)
         rows = []
         for t in range(n):
@@ -2496,23 +2497,21 @@ def _rank_spatial(content, style, steps, **cfg_kw):
                             None)
             held.append((got, ref, float((g - gu).abs().max()
                                          / gu.abs().max())))
-            for name, fn in counted.items():
-                fn.launches = saved[name]
+            _unlaunch(saved)
             rows.append(run_steps(spec, 1, vgg, content_feats, targets,
                                   moments, alpha, pyramid, opt,
                                   lambda s, c=coords: c, group, spatial))
-            saved = {name: fn.launches for name, fn in counted.items()}
+            saved = _launches()
         digests.append(hashlib.sha256(b"".join(
             p.detach().cpu().numpy().tobytes() for p in pyramid)).hexdigest())
         return torch.cat(rows)
 
     solve.optimization_steps = held_steps
     try:
-        for fn in counted.values():
-            fn.launches = 0
+        before = _launches()
         _, info = strotss_torch.stylize(content, style, cfg, mesh=mesh)
         torch.cuda.synchronize()
-        launches = {name: fn.launches for name, fn in counted.items()}
+        launches = _launches(before)
     finally:
         solve.optimization_steps = run_steps
     got = torch.stack([h[0] for h in held]).cpu().numpy()

@@ -9,7 +9,8 @@ run region-guided transfer; ``--style2``/``--style_blend`` and
 with ``--start_level``, refines an earlier result; ``--checkpoint_dir``
 saves the state after every chunk and resumes from it; ``--remat``
 recomputes VGG's activations in the backward pass; ``--profile_dir``
-writes a ``torch.profiler`` Chrome trace of the run. ``--sinkhorn``
+writes a ``torch.profiler`` Chrome trace of the run, with the program's
+spans on a track of their own. ``--sinkhorn``
 takes the materialized Sinkhorn path below N * M = 2**30 samples and the
 streamed one (kernel K4) above, as the JAX package does.
 ``--no_pallas`` takes the plain PyTorch versions of the loss kernels and
@@ -21,10 +22,12 @@ ahead of the run).
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 
 from strotss_torch.config import StrotssConfig
+from strotss_torch.utils import timing
 from strotss_torch.utils.logging import make_logger
 from strotss_torch.utils.timing import Timer
 
@@ -257,8 +260,9 @@ def main(argv=None) -> int:
 
 def profiled(run, directory: str, device):
     """``run()`` under ``torch.profiler`` (the host's activity, and the
-    card's on a CUDA device); the Chrome trace goes to
-    ``<directory>/strotss_trace.json``. Returns ``run()``'s image."""
+    card's on a CUDA device) and :func:`timing.tracing`; the Chrome trace
+    goes to ``<directory>/strotss_trace.json``, the spans added to it by
+    :func:`add_spans`. Returns ``run()``'s image."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -266,14 +270,38 @@ def profiled(run, directory: str, device):
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(directory, exist_ok=True)
-    with profile(activities=activities) as prof:
+    with timing.tracing() as trace, profile(activities=activities) as prof:
         final, _ = run()
         if device.type == "cuda":
             torch.cuda.synchronize(device)
     path = os.path.join(directory, "strotss_trace.json")
     prof.export_chrome_trace(path)
+    add_spans(path, trace.spans)
     logger.info(f"Wrote profiler trace to {path}.")
     return final
+
+
+def add_spans(path: str, spans) -> None:
+    """Append ``spans`` (:class:`timing.Span`) to the Chrome trace at
+    ``path`` as complete events on a track of their own (thread 0 of this
+    process, named "strotss spans"), in µs on the trace's clock: Unix
+    epoch ns less the trace's ``baseTimeNanoseconds``, as the profiler
+    writes its own events."""
+    with open(path) as f:
+        doc = json.load(f)
+    base = doc.get("baseTimeNanoseconds", 0)
+    pid = os.getpid()
+    events = [{"ph": "M", "name": "thread_name", "pid": pid, "tid": 0,
+               "args": {"name": "strotss spans"}}]
+    for s in spans:
+        events.append({"ph": "X", "cat": "strotss_span", "name": s.name,
+                       "pid": pid, "tid": 0,
+                       "ts": (s.start_ns - base) / 1e3,
+                       "dur": (s.end_ns - s.start_ns) / 1e3,
+                       "args": dict(s.attrs, call_id=s.call_id)})
+    doc["traceEvents"].extend(events)
+    with open(path, "w") as f:
+        json.dump(doc, f)
 
 
 if __name__ == "__main__":

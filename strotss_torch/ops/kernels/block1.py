@@ -25,7 +25,8 @@ of them), and each image's result is bit for bit a one-image launch's.
 
 ``block1_fwd`` and ``block1_bwd`` are the wrappers: on CUDA tensors they
 launch the kernels of ``csrc/block1.cu`` (whose header states their bound
-and design) and count the launches; on CPU tensors they compute the same
+and design) and count the launches (``launch.block1_fwd``,
+``launch.block1_bwd``); on CPU tensors they compute the same
 with the plain versions below. Weights arrive as the port's OIHW tensors
 and are laid out for the kernels here.
 
@@ -53,6 +54,7 @@ from strotss_torch.ops.kernels.common import (
     launch_on,
     resolve_impl,
 )
+from strotss_torch.utils.timing import count
 
 
 def _r(t: torch.Tensor, mul_dtype: torch.dtype) -> torch.Tensor:
@@ -199,11 +201,8 @@ def block1_fwd(x, k1, b1, k2, b2, mul_dtype=torch.bfloat16):
               b1l.data_ptr(), k2l.data_ptr(), b2l.data_ptr(), h, w,
               lead[0] if lead else 1, tap1.data_ptr(), tap2.data_ptr(),
               _stream(x))
-    block1_fwd.launches += 1
+    count("launch.block1_fwd")
     return tap1, tap2
-
-
-block1_fwd.launches = 0
 
 
 def fwd_setups() -> int:
@@ -235,11 +234,8 @@ def block1_bwd(tap1, tap2, g1, g2, k1, k2, mul_dtype=torch.bfloat16):
               g1.data_ptr(), g2.data_ptr(), k2r.data_ptr(), k1r.data_ptr(),
               h, w, lead[0] if lead else 1, dy1.data_ptr(), dx.data_ptr(),
               _stream(tap1))
-    block1_bwd.launches += 1
+    count("launch.block1_bwd")
     return dx
-
-
-block1_bwd.launches = 0
 
 
 def bwd_setups() -> int:

@@ -12,8 +12,9 @@ onto the argmin pairs through the analytic distance derivatives, in
 O((N + M) C).
 
 ``mins`` is the wrapper: on a CUDA tensor it launches the kernel (and
-counts the launch in ``mins.launches``), on a CPU tensor it computes the
-same function with :func:`mins_plain`. ``tf32_round``, ``tf32_split`` and
+counts the launch in ``launch.remd_mins``, a counter of
+:mod:`strotss_torch.utils.timing`), on a CPU tensor it computes the same
+function with :func:`mins_plain`. ``tf32_round``, ``tf32_split`` and
 the ``frag_*`` / ``tc_tile_*`` maps state the tensor-core route's
 arithmetic and layouts in Python, for the CPU tests.
 """
@@ -35,6 +36,7 @@ from strotss_torch.ops.kernels.common import (
     stream_scratch,
 )
 from strotss_torch.ops.losses import dist_metrics
+from strotss_torch.utils.timing import count
 
 _TILE = 64  # csrc/tile.cuh TILE; also the tensor-core route's column tile
 #: csrc/remd.cu: the tensor-core route's tile (TC_BM x TC_BN), the channels
@@ -207,11 +209,8 @@ def mins(x: torch.Tensor, y: torch.Tensor, distance: str,
               else ROUTES.index(route), *parts, rowmin.data_ptr(),
               rowarg.data_ptr(), colmin.data_ptr(), colarg.data_ptr(),
               stream)
-    mins.launches += 1
+    count("launch.remd_mins")
     return rowmin, colmin, rowarg, colarg
-
-
-mins.launches = 0
 
 
 def _pair_grads(x, y, ii, jj, w, cvals, distance: str, channels: int):

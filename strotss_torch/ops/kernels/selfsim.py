@@ -15,10 +15,11 @@ row-normalized samples, D_x = 1 - x^ x^T, c_x its column sums (closed form
 ((G_x + G_x^T) x^, (G_y + G_y^T) y^), so the backward uses exactly the
 signs t was summed over. On CUDA tensors they launch the kernels of
 ``csrc/selfsim.cu`` (whose header states their bound and design) and count
-the launches; on CPU tensors they compute the same with the materialized
-plain versions below. The normalization, the column sums and the pull-back
-through the normalization stay in PyTorch, as the JAX package keeps them
-outside its kernels.
+the launches (``launch.selfsim_fwd``, ``launch.selfsim_bwd``); on CPU
+tensors they compute the same with the materialized plain versions below.
+The normalization, the column sums and the pull-back through the
+normalization stay in PyTorch, as the JAX package keeps them outside its
+kernels.
 
 On the card the signs are an (N, N) view of an (N, sp) buffer whose row
 pitch sp is a multiple of ``SIGN_PITCH`` bytes. The ``fwd_*`` maps state
@@ -53,6 +54,7 @@ from strotss_torch.ops.kernels.remd import (
     tc_smem_row,
 )
 from strotss_torch.ops.losses import cosine_distance, mae
+from strotss_torch.utils.timing import count
 
 #: csrc/selfsim.cu SB_PITCH: the signs' row pitch in bytes is a multiple
 SIGN_PITCH = 64
@@ -190,11 +192,8 @@ def selfsim_fwd(xh, yh, cx, cy, split=None):
               cx.data_ptr(), cy.data_ptr(), n, c, *parts, loss.data_ptr(),
               tx.data_ptr(), ty.data_ptr(), signs.data_ptr(), sp, ks,
               stream)
-    selfsim_fwd.launches += 1
+    count("launch.selfsim_fwd")
     return loss, tx, ty, signs[:, :n]
-
-
-selfsim_fwd.launches = 0
 
 
 def _check_signs(signs: torch.Tensor, n: int, device) -> None:
@@ -231,11 +230,8 @@ def selfsim_bwd(xh, yh, cx, cy, tx, ty, signs):
               cx.data_ptr(), cy.data_ptr(), tx.data_ptr(), ty.data_ptr(),
               signs.data_ptr(), signs.stride(0), n, c, u[0].data_ptr(),
               u[1].data_ptr(), stream)
-    selfsim_bwd.launches += 1
+    count("launch.selfsim_bwd")
     return u[0], u[1]
-
-
-selfsim_bwd.launches = 0
 
 
 class SelfSimilarity(torch.autograd.Function):

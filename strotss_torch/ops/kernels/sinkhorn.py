@@ -16,7 +16,7 @@ loss is the read-out ``sum_ij T_ij d_ij`` of the plan
 ``T = exp(log_u_i - lam * d_ij + log_v_j)``, in row blocks.
 
 The operands of a solve are prepared once (:func:`prepare`, one launch for
-x and y, counted in ``prepare.launches``): rows padded to a multiple of
+x and y, counted in ``launch.sinkhorn_prep``): rows padded to a multiple of
 ``ROW_PAD``, channels to ``prep_channels(C)``, each value split into its
 TF32 parts where the tensor cores take it (C >= ``TC_MIN_C``), and each
 row's squared norm and its floored inverse square root.
@@ -29,7 +29,7 @@ is not the unrolled gradient of the plain path (cosine ~0.9 with it at 30
 iterations).
 
 ``lse_pass`` is the wrapper: on a CUDA tensor it launches K4 (and counts
-the launch in ``lse_pass.launches``), on a CPU tensor it computes the same
+the launch in ``launch.sinkhorn_lse``), on a CPU tensor it computes the same
 function with :func:`lse_pass_plain`.
 """
 
@@ -52,6 +52,7 @@ from strotss_torch.ops.kernels.common import (
 )
 from strotss_torch.ops.kernels.remd import tf32_split
 from strotss_torch.ops.losses import dist_metrics
+from strotss_torch.utils.timing import count
 
 #: csrc/sinkhorn.cu: the channel count from which the tensor cores are
 #: taken (SK_TC_MIN_C), the prepared rows' multiple (SK_ROW_PAD) and the
@@ -156,7 +157,7 @@ def prepare_plain(x: torch.Tensor) -> PreparedRows:
 def prepare(x: torch.Tensor, y: torch.Tensor
             ) -> Optional[Tuple[PreparedRows, PreparedRows]]:
     """(x, y) prepared for K4 by one kernel launch (counted in
-    ``prepare.launches``), in one allocation; None for CPU tensors, whose
+    ``launch.sinkhorn_prep``), in one allocation; None for CPU tensors, whose
     passes take the plain version."""
     if not x.is_cuda:
         return None
@@ -179,11 +180,8 @@ def prepare(x: torch.Tensor, y: torch.Tensor
               c, px.data_ptr(), nx.data_ptr(), rx, py.data_ptr(),
               ny.data_ptr(), ry,
               torch.cuda.current_stream(x.device).cuda_stream)
-    prepare.launches += 1
+    count("launch.sinkhorn_prep")
     return PreparedRows(px, nx, n, c), PreparedRows(py, ny, m, c)
-
-
-prepare.launches = 0
 
 
 def tc_setups() -> int:
@@ -239,11 +237,8 @@ def lse_pass(x: torch.Tensor, y: torch.Tensor, logv: torch.Tensor,
               py.norms.data_ptr(), py.norms.shape[1], logv.data_ptr(), n, m,
               c, _DIST_CODE[distance], float(lam), split, part.data_ptr(),
               out.data_ptr(), stream)
-    lse_pass.launches += 1
+    count("launch.sinkhorn_lse")
     return out
-
-
-lse_pass.launches = 0
 
 
 def transport_readout(x: torch.Tensor, y: torch.Tensor, log_u: torch.Tensor,

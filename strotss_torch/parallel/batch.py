@@ -80,6 +80,7 @@ from strotss_torch.solve import (
     scale_mode_shapes,
 )
 from strotss_torch.utils import checkpoint as ckpt
+from strotss_torch.utils.timing import span, timed
 from strotss_torch.validation import check_image, check_masks, \
     check_start_level
 
@@ -374,7 +375,8 @@ def stylize_batch(
     regions, weights, seeds = regions[part], weights[part], seeds[part]
     # the ranks of a 'sample' group hold replicas of their pairs' pyramid;
     # a 'data' axis alone runs each pair on one rank
-    with precision(spec, deterministic=group is not None):
+    with precision(spec, deterministic=group is not None), \
+            span("call", pairs=bl, regions=k):
         vgg = VGG({name: {n: t.to(dev) for n, t in p.items()}
                    for name, p in vgg_params.items()},
                   taps=spec.taps, vgg_type=spec.vgg_type,
@@ -396,97 +398,108 @@ def stylize_batch(
                 # skipped: never run, never drawn from; alpha still halves
                 alpha = [a / 2.0 for a in alpha]
                 continue
-            t_scale = time.perf_counter()
-            mode, chw, shw = scale_mode_shapes(cfg, contents.shape,
-                                               styles.shape, i, scl, warm)
-            lr = cfg.lr / 2 if (i == cfg.levels - 1 and i > 0) else cfg.lr
-            gens = [scale_generators(sd, i, dev) for sd in seeds]
-            step_gens = [g[1] for g in gens]
-            done = 0
-            ran = True
-            if resume is not None:
-                done = min(resume["done_steps"], cfg.max_iter)
-                ran = done < cfg.max_iter
-            pyramid, content_feats, targets, moments, cmasks = (
-                prepare_scale_batch(
-                    spec, mode, chw, shw, cfg.pyramid_levels, vgg, contents,
-                    styles, stylized if stylized is not None else contents,
-                    [g[0] for g in gens], i, regions, content_masks,
-                    style_masks, coords_source))
-            opt = RMSprop(pyramid, lr)
-            if resume is not None:  # i is the checkpoint's scale
-                saved = _restore(cfg.checkpoint_dir,
-                                 _state(pyramid, opt, step_gens), B, part)
-                with torch.no_grad():
-                    for j, p in enumerate(pyramid):
-                        p.copy_(saved[f"pyramid.{j}"])
-                    for j, v in enumerate(opt.nu):
-                        v.copy_(saved[f"nu.{j}"])
-                for b, g in enumerate(step_gens):
-                    g.set_state(saved[f"rng.{b}"])
-                alpha = [float(a) for a in np.broadcast_to(
-                    np.asarray(resume["alpha"], np.float64), (B,))]
-                resume = None
+            with timed("scale", index=i, px=scl) as clock:
+                with span("scale.setup"):
+                    mode, chw, shw = scale_mode_shapes(
+                        cfg, contents.shape, styles.shape, i, scl, warm)
+                    lr = (cfg.lr / 2 if (i == cfg.levels - 1 and i > 0)
+                          else cfg.lr)
+                    gens = [scale_generators(sd, i, dev) for sd in seeds]
+                    step_gens = [g[1] for g in gens]
+                    done = 0
+                    ran = True
+                    if resume is not None:
+                        done = min(resume["done_steps"], cfg.max_iter)
+                        ran = done < cfg.max_iter
+                    pyramid, content_feats, targets, moments, cmasks = (
+                        prepare_scale_batch(
+                            spec, mode, chw, shw, cfg.pyramid_levels, vgg,
+                            contents, styles,
+                            stylized if stylized is not None else contents,
+                            [g[0] for g in gens], i, regions, content_masks,
+                            style_masks, coords_source))
+                    opt = RMSprop(pyramid, lr)
+                    if resume is not None:  # i is the checkpoint's scale
+                        saved = _restore(cfg.checkpoint_dir,
+                                         _state(pyramid, opt, step_gens), B,
+                                         part)
+                        with torch.no_grad():
+                            for j, p in enumerate(pyramid):
+                                p.copy_(saved[f"pyramid.{j}"])
+                            for j, v in enumerate(opt.nu):
+                                v.copy_(saved[f"nu.{j}"])
+                        for b, g in enumerate(step_gens):
+                            g.set_state(saved[f"rng.{b}"])
+                        alpha = [float(a) for a in np.broadcast_to(
+                            np.asarray(resume["alpha"], np.float64), (B,))]
+                        resume = None
+                        checkpoint_sync(mesh, cfg)
+                    pairs = [PairTerms(targets[b], moments[b], alpha[part][b],
+                                       weights[b]) for b in range(bl)]
+
+                    def coords_fn(b, t, i=i, chw=chw, cmasks=cmasks,
+                                  step_gens=step_gens):
+                        return _pair_coords(coords_source, step_gens[b], b,
+                                            i, "paired", t, chw, n, dev,
+                                            cmasks[b], regions[b])
+
+                curve: List[torch.Tensor] = []
+                images = None
+                while done < cfg.max_iter:
+                    steps = min(chunk, cfg.max_iter - done)
+                    rows, images = run_chunk_batch(
+                        spec, steps, vgg, content_feats, pairs, pyramid, opt,
+                        lambda b, t, d=done: coords_fn(b, d + t),
+                        images=bool(cfg.checkpoint_dir), sample_group=group)
+                    curve.append(rows)
+                    if cfg.checkpoint_dir:
+                        state = _state(pyramid, opt, step_gens)
+                        extras = {"stylized": images[0],
+                                  "image_u8": images[1]}
+                        if data is not None:
+                            state, extras = _gather_state(state, data), {
+                                name: _gather_pairs(v, data)
+                                for name, v in extras.items()}
+                        if lead:
+                            ckpt.save_state(cfg.checkpoint_dir, i,
+                                            done + steps, alpha, state,
+                                            fingerprint=fingerprint,
+                                            extras=extras)
+                        checkpoint_sync(mesh, cfg)
+                    if progress_cb is not None:
+                        block = rows if data is None else _gather_pairs(
+                            rows.transpose(0, 1), data).transpose(0, 1)
+                        with span("scale.readback"):
+                            block = block.mean(dim=1).cpu().numpy()
+                        for j in range(steps):
+                            progress_cb(scl, done + j + 1, cfg.max_iter,
+                                        {"loss": float(block[j, 0]),
+                                         "loss_c": float(block[j, 1]),
+                                         "loss_s": float(block[j, 2])})
+                    done += steps
+                check_replicas(pyramid, group, i)
+                kept = ({} if ran or not cfg.checkpoint_dir
+                        else ckpt.restore_extras(cfg.checkpoint_dir))
+                if "stylized" in kept and "image_u8" in kept:
+                    # a resume on a completed chunk boundary: the saved
+                    # images go on to the next scale as the interrupted
+                    # run made them
+                    stylized = torch.from_numpy(
+                        kept["stylized"][part]).to(dev)
+                    final_u8 = torch.from_numpy(
+                        kept["image_u8"][part]).to(dev)
+                else:
+                    with span("scale.finish"):
+                        stylized, final_u8 = images or _images(pyramid)
                 checkpoint_sync(mesh, cfg)
-            pairs = [PairTerms(targets[b], moments[b], alpha[part][b],
-                               weights[b]) for b in range(bl)]
-
-            def coords_fn(b, t, i=i, chw=chw, cmasks=cmasks,
-                          step_gens=step_gens):
-                return _pair_coords(coords_source, step_gens[b], b, i,
-                                    "paired", t, chw, n, dev, cmasks[b],
-                                    regions[b])
-
-            curve: List[torch.Tensor] = []
-            images = None
-            while done < cfg.max_iter:
-                steps = min(chunk, cfg.max_iter - done)
-                rows, images = run_chunk_batch(
-                    spec, steps, vgg, content_feats, pairs, pyramid, opt,
-                    lambda b, t, d=done: coords_fn(b, d + t),
-                    images=bool(cfg.checkpoint_dir), sample_group=group)
-                curve.append(rows)
-                if cfg.checkpoint_dir:
-                    state = _state(pyramid, opt, step_gens)
-                    extras = {"stylized": images[0], "image_u8": images[1]}
-                    if data is not None:
-                        state, extras = _gather_state(state, data), {
-                            name: _gather_pairs(v, data)
-                            for name, v in extras.items()}
-                    if lead:
-                        ckpt.save_state(cfg.checkpoint_dir, i, done + steps,
-                                        alpha, state,
-                                        fingerprint=fingerprint,
-                                        extras=extras)
-                    checkpoint_sync(mesh, cfg)
-                if progress_cb is not None:
-                    block = rows if data is None else _gather_pairs(
-                        rows.transpose(0, 1), data).transpose(0, 1)
-                    block = block.mean(dim=1).cpu().numpy()
-                    for j in range(steps):
-                        progress_cb(scl, done + j + 1, cfg.max_iter,
-                                    {"loss": float(block[j, 0]),
-                                     "loss_c": float(block[j, 1]),
-                                     "loss_s": float(block[j, 2])})
-                done += steps
-            check_replicas(pyramid, group, i)
-            kept = ({} if ran or not cfg.checkpoint_dir
-                    else ckpt.restore_extras(cfg.checkpoint_dir))
-            if "stylized" in kept and "image_u8" in kept:
-                # a resume on a completed chunk boundary: the saved images
-                # go on to the next scale as the interrupted run made them
-                stylized = torch.from_numpy(kept["stylized"][part]).to(dev)
-                final_u8 = torch.from_numpy(kept["image_u8"][part]).to(dev)
-            else:
-                stylized, final_u8 = images or _images(pyramid)
-            checkpoint_sync(mesh, cfg)
-            curve_np = (torch.cat(curve).cpu().numpy() if curve
-                        else np.zeros((0, bl, 3), np.float32))
+                with span("scale.readback"):
+                    curve_np = (torch.cat(curve).cpu().numpy() if curve
+                                else np.zeros((0, bl, 3), np.float32))
             info["scales"].append({
                 "scale": scl,
                 "alpha": (float(alpha[0]) if len(set(alpha)) == 1
                           else [float(a) for a in alpha]),
-                "seconds": time.perf_counter() - t_scale,
+                "seconds": clock.seconds,
                 "curve": curve_np})
             alpha = [a / 2.0 for a in alpha]
         if data is not None:

@@ -47,6 +47,7 @@ from strotss_torch.ops.image import (
 )
 from strotss_torch.ops.losses import content_loss, style_loss
 from strotss_torch.ops.sampling import sample_paired
+from strotss_torch.utils.timing import span
 
 
 class StepSpec(NamedTuple):
@@ -324,7 +325,7 @@ def scale_seed(mode: str, chw, shw, levels: int, content, style, prev,
 
 def step_losses(spec: StepSpec, content_feats, pred, style_targets,
                 style_moments, alpha: float, coords: torch.Tensor,
-                weights=None, sample_group=None):
+                weights=None, sample_group=None, pair: int = 0):
     """(loss, loss_c, loss_s) of one step at the given sample coords.
 
     One entry a region: (K, n, 2) ``coords``, (K, n, C) ``style_targets``
@@ -333,6 +334,7 @@ def step_losses(spec: StepSpec, content_feats, pred, style_targets,
     sum_k (alpha lc_k + ls_k) / (K denom)
     (``strotss_tpu/programs.py:663-675``). ``weights``: K floats that
     replace the 1/K of the mean (a batch's ``region_valid`` weights).
+    ``pair``: the pair's index in a batch, for the spans only.
 
     Under ``spec.shard_samples`` both transport terms split the style
     targets' rows over ``sample_group`` (the mesh's 'sample' process
@@ -364,14 +366,17 @@ def step_losses(spec: StepSpec, content_feats, pred, style_targets,
     lc = ls = 0.0
     for r, (xy, target, tmom) in enumerate(zip(coords, style_targets,
                                                style_moments)):
-        c_feat, p_feat = sample_paired(xy, content_feats, pred)
-        lc_r = content_loss(c_feat, p_feat, impl=spec.selfsim_impl)
-        ls_r = style_loss(target, p_feat, alpha,
-                          use_sinkhorn=spec.use_sinkhorn,
-                          sinkhorn_lambda=spec.sinkhorn_lambda,
-                          sinkhorn_iters=spec.sinkhorn_iters,
-                          remd_impl=spec.remd_impl, target_moments=tmom,
-                          remd=remd, sinkhorn=sinkhorn)
+        with span("loss.sample", region=r, pair=pair):
+            c_feat, p_feat = sample_paired(xy, content_feats, pred)
+        with span("loss.content", region=r, pair=pair):
+            lc_r = content_loss(c_feat, p_feat, impl=spec.selfsim_impl)
+        with span("loss.style", region=r, pair=pair):
+            ls_r = style_loss(target, p_feat, alpha,
+                              use_sinkhorn=spec.use_sinkhorn,
+                              sinkhorn_lambda=spec.sinkhorn_lambda,
+                              sinkhorn_iters=spec.sinkhorn_iters,
+                              remd_impl=spec.remd_impl, target_moments=tmom,
+                              remd=remd, sinkhorn=sinkhorn)
         if weights is None:
             lc, ls = lc + lc_r / k, ls + ls_r / k
         else:
@@ -398,19 +403,29 @@ def optimization_steps(spec: StepSpec, n_steps: int, vgg: VGG, content_feats,
     """
     rows = []
     for t in range(n_steps):
-        coords = coords_fn(t)
-        leaves = [p.requires_grad_(True) for p in pyramid]
-        img = fold_laplacian_pyramid(leaves)
-        pred = extract_for_grad(spec, vgg, img, spatial)
-        loss, lc, ls = step_losses(spec, content_feats, pred, style_targets,
-                                   style_moments, alpha, coords,
-                                   sample_group=sample_group)
-        # under remat nothing else holds the taps: the backward recomputes
-        # them instead of keeping these alive beside the recomputed ones
-        del pred
-        grads = torch.autograd.grad(loss, leaves)
-        opt.step(grads)
-        rows.append(torch.stack([loss, lc, ls]).detach())
+        with span("step"):
+            leaves = [p.requires_grad_(True) for p in pyramid]
+            with span("step.fold"):
+                img = fold_laplacian_pyramid(leaves)
+            with span("step.vgg"):
+                pred = extract_for_grad(spec, vgg, img, spatial)
+            with span("step.losses"):
+                # the draw is the sampling layer's: its own generator, so
+                # its place in the step changes no value
+                coords = coords_fn(t)
+                loss, lc, ls = step_losses(spec, content_feats, pred,
+                                           style_targets, style_moments,
+                                           alpha, coords,
+                                           sample_group=sample_group)
+            # under remat nothing else holds the taps: the backward
+            # recomputes them instead of keeping these alive beside the
+            # recomputed ones
+            del pred
+            with span("step.backward"):
+                grads = torch.autograd.grad(loss, leaves)
+            with span("step.update"):
+                opt.step(grads)
+            rows.append(torch.stack([loss, lc, ls]).detach())
     return torch.stack(rows)
 
 
@@ -448,25 +463,33 @@ def batch_steps(spec: StepSpec, n_steps: int, vgg: VGG, content_feats,
     content = [f.unbind(0) for f in content_feats]
     rows = []
     for t in range(n_steps):
-        coords = [coords_fn(b, t) for b in range(len(pairs))]
-        leaves = [p.requires_grad_(True) for p in pyramid]
-        img = fold_laplacian_pyramid(leaves)
-        # unbind: one gradient buffer for all pairs in the backward pass
-        pred = [f.unbind(0) for f in extract_for_grad(spec, vgg, img)]
-        total, per = None, []
-        for b, pair in enumerate(pairs):
-            if coords[b].shape[0] == 0:
-                per.append(torch.zeros(3, device=img.device))
-                continue
-            loss, lc, ls = step_losses(
-                spec, [f[b] for f in content], [f[b] for f in pred],
-                pair.targets, pair.moments, pair.alpha, coords[b],
-                pair.weights, sample_group)
-            total = loss if total is None else total + loss
-            per.append(torch.stack([loss, lc, ls]).detach())
-        del pred
-        grads = ([torch.zeros_like(p) for p in leaves] if total is None
-                 else torch.autograd.grad(total, leaves))
-        opt.step(grads)
-        rows.append(torch.stack(per))
+        with span("step"):
+            leaves = [p.requires_grad_(True) for p in pyramid]
+            with span("step.fold"):
+                img = fold_laplacian_pyramid(leaves)
+            with span("step.vgg"):
+                # unbind: one gradient buffer for all pairs in the backward
+                pred = [f.unbind(0)
+                        for f in extract_for_grad(spec, vgg, img)]
+            total, per = None, []
+            with span("step.losses"):
+                coords = [coords_fn(b, t) for b in range(len(pairs))]
+                for b, pair in enumerate(pairs):
+                    if coords[b].shape[0] == 0:
+                        per.append(torch.zeros(3, device=img.device))
+                        continue
+                    loss, lc, ls = step_losses(
+                        spec, [f[b] for f in content], [f[b] for f in pred],
+                        pair.targets, pair.moments, pair.alpha, coords[b],
+                        pair.weights, sample_group, pair=b)
+                    total = loss if total is None else total + loss
+                    per.append(torch.stack([loss, lc, ls]).detach())
+            del pred
+            with span("step.backward"):
+                grads = ([torch.zeros_like(p) for p in leaves]
+                         if total is None
+                         else torch.autograd.grad(total, leaves))
+            with span("step.update"):
+                opt.step(grads)
+            rows.append(torch.stack(per))
     return torch.stack(rows)

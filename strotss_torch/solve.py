@@ -62,6 +62,7 @@ from strotss_torch.programs import (
 )
 from strotss_torch.utils import checkpoint as ckpt
 from strotss_torch.utils.logging import logger
+from strotss_torch.utils.timing import span, timed
 from strotss_torch.validation import check_start_level
 
 #: ``coords_source(scale_index, kind, step, hw, sample_size)`` returns the
@@ -345,7 +346,8 @@ def stylize_single(
                 f"range for levels={cfg.levels} — config mismatch with the "
                 "saved run. Delete the checkpoint directory to start fresh.")
 
-    with precision(spec, deterministic=mesh is not None):
+    with precision(spec, deterministic=mesh is not None), \
+            span("call", pairs=1, regions=max(n_regions, 1)):
         vgg = VGG({k: {n: t.to(device) for n, t in p.items()}
                    for k, p in vgg_params.items()},
                   taps=spec.taps, vgg_type=spec.vgg_type,
@@ -371,101 +373,111 @@ def stylize_single(
                 # so each scale that runs sees a full run's alpha
                 alpha /= 2.0
                 continue
-            t_scale = time.perf_counter()
-            mode, chw, shw = scale_mode_shapes(
-                cfg, content.shape,
-                tuple(s.shape for s in style) if multi else style.shape,
-                i, scl, warm)
-            lr = cfg.lr / 2 if (i == cfg.levels - 1 and i > 0) else cfg.lr
-            prev = stylized if stylized is not None else content
-            style_gen, step_gen = scale_generators(cfg.seed, i, device)
-            with torch.no_grad():
-                scl_c, scl_s, pyramid = scale_seed(
-                    mode, chw, shw, cfg.pyramid_levels, content, style, prev,
-                    style_weights=weights)
-            pyramid = [p.detach().contiguous() for p in pyramid]
-            opt = RMSprop(pyramid, lr)
-            done = 0
-            if resume is not None:  # i is the checkpoint's scale
-                saved = ckpt.restore_state(cfg.checkpoint_dir,
-                                           _state(pyramid, opt, step_gen))
-                with torch.no_grad():
-                    for k, p in enumerate(pyramid):
-                        p.copy_(saved[f"pyramid.{k}"])
-                    for k, v in enumerate(opt.nu):
-                        v.copy_(saved[f"nu.{k}"])
-                step_gen.set_state(saved["rng"])
-                alpha = resume["alpha"]
-                done = min(resume["done_steps"], cfg.max_iter)
-                resume = None
-                checkpoint_sync(mesh, cfg)
-
-            curve: List[torch.Tensor] = []
-            ran = done < cfg.max_iter
-            if ran:
-                with torch.no_grad():
-                    content_feats = extract_hypercolumn(vgg, scl_c,
-                                                        spatial)
-                    style_targets = _style_targets(
-                        vgg, coords_source, style_gen, i, scl_s, shw, n,
-                        style_ns, device, style_masks, spatial)
-                    style_moments = [moment_stats(t) for t in style_targets]
-                cmasks = ([prepare_mask(m, chw) for m in content_masks]
-                          if masked else [None])
-
-                def coords_fn(t, i=i, chw=chw, cmasks=cmasks,
-                              step_gen=step_gen):
-                    return _coords(coords_source, step_gen, i, "paired", t,
-                                   chw, n, device, cmasks)
-
-            while done < cfg.max_iter:
-                k = min(chunk, cfg.max_iter - done)
-                curve.append(optimization_steps(
-                    spec, k, vgg, content_feats, style_targets,
-                    style_moments, alpha, pyramid, opt,
-                    lambda t, d=done: coords_fn(d + t), group, spatial))
-                image = None
-                if cfg.checkpoint_dir or (snapshot_cb is not None
-                                          and cfg.save_every > 0):
+            with timed("scale", index=i, px=scl) as clock:
+                with span("scale.setup"):
+                    mode, chw, shw = scale_mode_shapes(
+                        cfg, content.shape,
+                        tuple(s.shape for s in style) if multi
+                        else style.shape, i, scl, warm)
+                    lr = (cfg.lr / 2 if (i == cfg.levels - 1 and i > 0)
+                          else cfg.lr)
+                    prev = stylized if stylized is not None else content
+                    style_gen, step_gen = scale_generators(cfg.seed, i,
+                                                           device)
                     with torch.no_grad():
+                        scl_c, scl_s, pyramid = scale_seed(
+                            mode, chw, shw, cfg.pyramid_levels, content,
+                            style, prev, style_weights=weights)
+                    pyramid = [p.detach().contiguous() for p in pyramid]
+                    opt = RMSprop(pyramid, lr)
+                    done = 0
+                    if resume is not None:  # i is the checkpoint's scale
+                        saved = ckpt.restore_state(
+                            cfg.checkpoint_dir, _state(pyramid, opt, step_gen))
+                        with torch.no_grad():
+                            for k, p in enumerate(pyramid):
+                                p.copy_(saved[f"pyramid.{k}"])
+                            for k, v in enumerate(opt.nu):
+                                v.copy_(saved[f"nu.{k}"])
+                        step_gen.set_state(saved["rng"])
+                        alpha = resume["alpha"]
+                        done = min(resume["done_steps"], cfg.max_iter)
+                        resume = None
+                        checkpoint_sync(mesh, cfg)
+
+                    curve: List[torch.Tensor] = []
+                    ran = done < cfg.max_iter
+                    if ran:
+                        with torch.no_grad():
+                            content_feats = extract_hypercolumn(vgg, scl_c,
+                                                                spatial)
+                            style_targets = _style_targets(
+                                vgg, coords_source, style_gen, i, scl_s, shw,
+                                n, style_ns, device, style_masks, spatial)
+                            style_moments = [moment_stats(t)
+                                             for t in style_targets]
+                        cmasks = ([prepare_mask(m, chw)
+                                   for m in content_masks]
+                                  if masked else [None])
+
+                        def coords_fn(t, i=i, chw=chw, cmasks=cmasks,
+                                      step_gen=step_gen):
+                            return _coords(coords_source, step_gen, i,
+                                           "paired", t, chw, n, device,
+                                           cmasks)
+
+                while done < cfg.max_iter:
+                    k = min(chunk, cfg.max_iter - done)
+                    curve.append(optimization_steps(
+                        spec, k, vgg, content_feats, style_targets,
+                        style_moments, alpha, pyramid, opt,
+                        lambda t, d=done: coords_fn(d + t), group, spatial))
+                    image = None
+                    if cfg.checkpoint_dir or (snapshot_cb is not None
+                                              and cfg.save_every > 0):
+                        with torch.no_grad():
+                            stylized = fold_laplacian_pyramid(pyramid)
+                            image = postprocess(stylized)
+                    if cfg.checkpoint_dir and lead:
+                        ckpt.save_state(
+                            cfg.checkpoint_dir, i, done + k, alpha,
+                            _state(pyramid, opt, step_gen),
+                            fingerprint=fingerprint,
+                            extras={"stylized": stylized, "image_u8": image})
+                    checkpoint_sync(mesh, cfg)
+                    if progress_cb is not None:
+                        with span("scale.readback"):
+                            block = curve[-1].cpu().numpy()
+                        for j in range(k):
+                            progress_cb(scl, done + j + 1, cfg.max_iter,
+                                        {"loss": float(block[j, 0]),
+                                         "loss_c": float(block[j, 1]),
+                                         "loss_s": float(block[j, 2])})
+                    done += k
+                    if (lead and snapshot_cb is not None
+                            and cfg.save_every > 0
+                            and (done % cfg.save_every == 0
+                                 or done == cfg.max_iter)):
+                        snapshot_cb(scl, done, image)
+                check_replicas(pyramid, replicas, i)
+                kept = ({} if ran or not cfg.checkpoint_dir
+                        else ckpt.restore_extras(cfg.checkpoint_dir))
+                if "stylized" in kept and "image_u8" in kept:
+                    # a resume on a completed chunk boundary: the saved
+                    # images go on to the next scale as the interrupted
+                    # run made them
+                    stylized = torch.from_numpy(kept["stylized"]).to(device)
+                    final_u8 = torch.from_numpy(kept["image_u8"]).to(device)
+                else:
+                    with span("scale.finish"), torch.no_grad():
                         stylized = fold_laplacian_pyramid(pyramid)
-                        image = postprocess(stylized)
-                if cfg.checkpoint_dir and lead:
-                    ckpt.save_state(
-                        cfg.checkpoint_dir, i, done + k, alpha,
-                        _state(pyramid, opt, step_gen),
-                        fingerprint=fingerprint,
-                        extras={"stylized": stylized, "image_u8": image})
+                        final_u8 = postprocess(stylized)
                 checkpoint_sync(mesh, cfg)
-                if progress_cb is not None:
-                    block = curve[-1].cpu().numpy()
-                    for j in range(k):
-                        progress_cb(scl, done + j + 1, cfg.max_iter,
-                                    {"loss": float(block[j, 0]),
-                                     "loss_c": float(block[j, 1]),
-                                     "loss_s": float(block[j, 2])})
-                done += k
-                if (lead and snapshot_cb is not None and cfg.save_every > 0
-                        and (done % cfg.save_every == 0
-                             or done == cfg.max_iter)):
-                    snapshot_cb(scl, done, image)
-            check_replicas(pyramid, replicas, i)
-            kept = ({} if ran or not cfg.checkpoint_dir
-                    else ckpt.restore_extras(cfg.checkpoint_dir))
-            if "stylized" in kept and "image_u8" in kept:
-                # a resume on a completed chunk boundary: the saved images
-                # go on to the next scale as the interrupted run made them
-                stylized = torch.from_numpy(kept["stylized"]).to(device)
-                final_u8 = torch.from_numpy(kept["image_u8"]).to(device)
-            else:
-                with torch.no_grad():
-                    stylized = fold_laplacian_pyramid(pyramid)
-                    final_u8 = postprocess(stylized)
-            checkpoint_sync(mesh, cfg)
-            curve_np = (torch.cat(curve).cpu().numpy() if curve
-                        else np.zeros((0, 3), np.float32))
+                with span("scale.readback"):
+                    curve_np = (torch.cat(curve).cpu().numpy() if curve
+                                else np.zeros((0, 3), np.float32))
             entry = {"scale": scl, "alpha": alpha, "curve": curve_np,
-                     "seconds": time.perf_counter() - t_scale}
+                     "seconds": clock.seconds}
             if len(curve_np):
                 entry.update(loss=float(curve_np[-1, 0]),
                              loss_c=float(curve_np[-1, 1]),

@@ -32,6 +32,7 @@ import torch
 from strotss_torch.models.weights import random_params
 from strotss_torch.ops import losses
 from strotss_torch.ops.kernels import block1, build, remd, selfsim, sinkhorn
+from strotss_torch.utils import timing
 
 
 @pytest.fixture
@@ -47,6 +48,11 @@ def _rand(seed, shape, device):
     return torch.tensor(a, dtype=torch.float32, device=device)
 
 
+def _count(kernel):
+    """The kernel's launches so far (its wrapper's counter)."""
+    return timing.counters().get("launch." + kernel, 0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,m,c,dist", [(1024, 1024, 2179, "cosine"),
                                         (1000, 777, 2179, "both"),
@@ -57,9 +63,9 @@ def test_remd_mins_on_card(cuda_device, n, m, c, dist):
     """Both routes (by C) and ragged edges (N not a multiple of 64 or 128,
     M not a multiple of 64)."""
     x, y = _rand(n, (n, c), cuda_device), _rand(m + 7, (m, c), cuda_device)
-    before = remd.mins.launches
+    before = _count("remd_mins")
     got = remd.mins(x, y, dist)
-    assert remd.mins.launches == before + 1
+    assert _count("remd_mins") == before + 1
     want = remd.mins_plain(x, y, dist)
     torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0)
     torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0)
@@ -176,7 +182,7 @@ def test_selfsim_on_card(cuda_device, n, c):
     versions; K2b is bitwise repeatable."""
     x, y = _rand(n, (n, c), cuda_device), _rand(n + 1, (n, c), cuda_device)
     xh, yh, _, _, cx, cy = selfsim._prep(x, y)
-    before = (selfsim.selfsim_fwd.launches, selfsim.selfsim_bwd.launches)
+    before = (_count("selfsim_fwd"), _count("selfsim_bwd"))
     loss, tx, ty, signs = selfsim.selfsim_fwd(xh, yh, cx, cy)
     p_loss, _, _, p_signs = selfsim.selfsim_fwd_plain(xh, yh, cx, cy)
     torch.testing.assert_close(loss, p_loss, rtol=1e-5, atol=0)
@@ -192,8 +198,8 @@ def test_selfsim_on_card(cuda_device, n, c):
         want_t = torch.sum(s * (1.0 - h @ h.T), dim=0)
         assert bool(((t - want_t).abs() <= 1e-5 * cv).all())
     got = selfsim.selfsim_bwd(xh, yh, cx, cy, tx, ty, signs)
-    assert (selfsim.selfsim_fwd.launches,
-            selfsim.selfsim_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert (_count("selfsim_fwd"),
+            _count("selfsim_bwd")) == (before[0] + 1, before[1] + 1)
     want = selfsim.selfsim_bwd_plain(xh, yh, cx, cy, tx, ty, signs)
 
     def project(u, h):
@@ -303,11 +309,11 @@ def test_block1_on_card(cuda_device, h, w):
     x = _rand(h, (h, w, 3), cuda_device)
     g1, g2 = _rand(3, (h, w, 64), cuda_device), _rand(4, (h, w, 64),
                                                        cuda_device)
-    before = (block1.block1_fwd.launches, block1.block1_bwd.launches)
+    before = (_count("block1_fwd"), _count("block1_bwd"))
     t1, t2 = block1.block1_fwd(x, k1, b1, k2, b2)
     dx = block1.block1_bwd(t1, t2, g1, g2, k1, k2)
-    assert (block1.block1_fwd.launches,
-            block1.block1_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert (_count("block1_fwd"),
+            _count("block1_bwd")) == (before[0] + 1, before[1] + 1)
     p1, p2 = block1.block1_plain(x, k1, b1, k2, b2)
     assert _err(t1, p1) <= 1e-5
     assert _err(t2, p2) <= 1e-3
@@ -329,11 +335,11 @@ def test_block1_pair_axis_on_card(cuda_device, b, h, w):
     x = _rand(h + b, (b, h, w, 3), cuda_device)
     g1, g2 = (_rand(5 + b, (b, h, w, 64), cuda_device),
               _rand(6 + b, (b, h, w, 64), cuda_device))
-    before = (block1.block1_fwd.launches, block1.block1_bwd.launches)
+    before = (_count("block1_fwd"), _count("block1_bwd"))
     t1, t2 = block1.block1_fwd(x, k1, b1, k2, b2)
     dx = block1.block1_bwd(t1, t2, g1, g2, k1, k2)
-    assert (block1.block1_fwd.launches,
-            block1.block1_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert (_count("block1_fwd"),
+            _count("block1_bwd")) == (before[0] + 1, before[1] + 1)
     assert t1.shape == (b, h, w, 64) and dx.shape == (b, h, w, 3)
     for i in range(b):
         o1, o2 = block1.block1_fwd(x[i], k1, b1, k2, b2)
@@ -403,9 +409,9 @@ def test_block1_bwd_repeat_call_does_no_setup(cuda_device, monkeypatch):
 def test_sinkhorn_lse_on_card(cuda_device, n, m, c, dist):
     x, y = _rand(n, (n, c), cuda_device), _rand(m + 7, (m, c), cuda_device)
     logv = 5.0 * _rand(m + 9, (m,), cuda_device)
-    before = sinkhorn.lse_pass.launches
+    before = _count("sinkhorn_lse")
     got = sinkhorn.lse_pass(x, y, logv, 10.0, dist)
-    assert sinkhorn.lse_pass.launches == before + 1
+    assert _count("sinkhorn_lse") == before + 1
     want = sinkhorn.lse_pass_plain(x, y, logv, 10.0, dist)
     assert _err(got, want) <= 1e-5
     assert torch.equal(got, sinkhorn.lse_pass(x, y, logv, 10.0, dist))
@@ -441,9 +447,9 @@ def test_sinkhorn_prepared_form_on_card(cuda_device, c):
     of calls that prepare their own, in both orientations."""
     x, y = _rand(3, (300, c), cuda_device), _rand(4, (200, c), cuda_device)
     lu, lv = _rand(5, (300,), cuda_device), _rand(6, (200,), cuda_device)
-    before = sinkhorn.prepare.launches
+    before = _count("sinkhorn_prep")
     px, py = sinkhorn.prepare(x, y)
-    assert sinkhorn.prepare.launches == before + 1
+    assert _count("sinkhorn_prep") == before + 1
     for got, want in ((px, sinkhorn.prepare_plain(x)),
                       (py, sinkhorn.prepare_plain(y))):
         assert torch.equal(got.parts, want.parts)
@@ -494,10 +500,10 @@ def test_sinkhorn_lse_repeat_call_allocates_output_only(cuda_device,
 def test_sinkhorn_streamed_on_card(cuda_device, dist):
     x, y = _rand(1, (1000, 64), cuda_device), _rand(2, (1000, 64),
                                                     cuda_device)
-    before = (sinkhorn.lse_pass.launches, sinkhorn.prepare.launches)
+    before = (_count("sinkhorn_lse"), _count("sinkhorn_prep"))
     got = losses.sinkhorn(x, y, dist, 10.0, 30, impl="kernel")
-    assert sinkhorn.lse_pass.launches == before[0] + 60
-    assert sinkhorn.prepare.launches == before[1] + 1
+    assert _count("sinkhorn_lse") == before[0] + 60
+    assert _count("sinkhorn_prep") == before[1] + 1
     want = losses.sinkhorn(x, y, dist, 10.0, 30, impl="plain")
     torch.testing.assert_close(got, want, rtol=1e-4, atol=0)
 
@@ -543,12 +549,12 @@ def test_masked_step_on_card(cuda_device):
     leaves = [p.requires_grad_(True)
               for p in make_laplacian_pyramid(content * 0.5 + 0.25, 5)]
     pred = programs.extract_hypercolumn(vgg, fold_laplacian_pyramid(leaves))
-    counted = (remd.mins, selfsim.selfsim_fwd, selfsim.selfsim_bwd)
-    before = [fn.launches for fn in counted]
+    counted = ("remd_mins", "selfsim_fwd", "selfsim_bwd")
+    before = [_count(k) for k in counted]
     got = programs.step_losses(spec, cf, pred, targets, moments, 16.0,
                                coords)
     grads = torch.autograd.grad(got[0], leaves)
-    assert [fn.launches - b for fn, b in zip(counted, before)] == [4, 2, 2]
+    assert [_count(k) - b for k, b in zip(counted, before)] == [4, 2, 2]
     assert all(bool(torch.isfinite(g).all()) for g in grads)
     with torch.no_grad():
         want = programs.step_losses(plain, cf, pred, targets, moments, 16.0,
@@ -558,11 +564,8 @@ def test_masked_step_on_card(cuda_device):
 
 
 def _launches():
-    return {"remd_mins": remd.mins.launches,
-            "selfsim_fwd": selfsim.selfsim_fwd.launches,
-            "selfsim_bwd": selfsim.selfsim_bwd.launches,
-            "block1_fwd": block1.block1_fwd.launches,
-            "block1_bwd": block1.block1_bwd.launches}
+    return {k: _count(k) for k in ("remd_mins", "selfsim_fwd", "selfsim_bwd",
+                                   "block1_fwd", "block1_bwd")}
 
 
 def _counted_run(content, style, cfg, **kw):

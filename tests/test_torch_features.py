@@ -639,6 +639,13 @@ def test_cli_profile_dir_writes_a_trace(pngs):
     with open(trace) as f:
         events = json.load(f)["traceEvents"]
     assert any("conv" in e.get("name", "") for e in events)
+    # the program's spans on their own track, on the profiler's clock: a
+    # step's convolution lies inside its step.vgg span
+    vgg = [e for e in events if e.get("name") == "step.vgg"]
+    assert vgg and {(e["ph"], e["tid"]) for e in vgg} == {("X", 0)}
+    convs = [e for e in events if e.get("name") == "aten::conv2d"]
+    assert any(v["ts"] <= c["ts"] and c["ts"] + c["dur"] <= v["ts"] + v["dur"]
+               for v in vgg for c in convs)
 
 
 def test_run_leaves_the_precision_switches_as_found(params):

@@ -22,6 +22,7 @@ import torch
 
 from strotss_torch.ops.kernels import build, remd, selfsim
 from strotss_torch.ops.kernels.common import resolve_impl
+from strotss_torch.utils import timing
 from strotss_tpu.ops.kernels import selfsim as jselfsim
 from strotss_tpu.ops.kernels.remd import _mins_pallas_call, relaxed_emd_pallas
 
@@ -114,8 +115,7 @@ def test_selfsim_function_grads_match_pallas():
 
 def test_cpu_tensors_take_the_plain_version():
     x, y = torch.tensor(_rand(5, (40, 9))), torch.tensor(_rand(6, (30, 9)))
-    before = (remd.mins.launches, selfsim.selfsim_fwd.launches,
-              selfsim.selfsim_bwd.launches)
+    before = timing.counters()
     for got, want in zip(remd.mins(x, y, "cosine"),
                          remd.mins_plain(x, y, "cosine")):
         assert torch.equal(got, want)
@@ -125,8 +125,7 @@ def test_cpu_tensors_take_the_plain_version():
     assert torch.equal(loss, selfsim.selfsim_fwd_plain(xh, yh, cx, cy)[0])
     selfsim.selfsim_bwd(xh, yh, cx, cy, tx, ty, signs)
     # nothing was launched
-    assert before == (remd.mins.launches, selfsim.selfsim_fwd.launches,
-                      selfsim.selfsim_bwd.launches)
+    assert timing.counters() == before
     assert resolve_impl("auto", x) == "plain"
 
 

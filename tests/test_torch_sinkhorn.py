@@ -23,6 +23,7 @@ from strotss_torch.models.weights import params_from_jax
 from strotss_torch.ops import losses as TL
 from strotss_torch.ops.kernels import sinkhorn as TS
 from strotss_torch.solve import stylize_single
+from strotss_torch.utils import timing
 from strotss_tpu.config import StrotssConfig as JaxConfig
 from strotss_tpu.models.weights import random_params as jax_random_params
 from strotss_tpu.ops import losses as JL
@@ -63,10 +64,10 @@ def test_lse_pass_plain_matches_pallas(n, m, c, dist):
 def test_lse_pass_on_cpu_is_the_plain_version():
     x, y, logv = _t(_rand(1, (40, 9))), _t(_rand(2, (30, 9))), _t(
         _rand(3, (30,)))
-    before = TS.lse_pass.launches
+    before = timing.counters()
     assert torch.equal(TS.lse_pass(x, y, logv, 10.0, "both"),
                        TS.lse_pass_plain(x, y, logv, 10.0, "both"))
-    assert TS.lse_pass.launches == before
+    assert timing.counters() == before
     with pytest.raises(ValueError, match="unknown distance"):
         TS.lse_pass(x, y, logv, 10.0, "cos")
 
@@ -487,8 +488,8 @@ def test_k4_split_prefers_equal_chunks_on_tensor_cores(m, sms):
 
 def test_k4_streamed_solve_prepares_once_on_cpu():
     """On the CPU the solve prepares nothing and launches nothing."""
-    before = (TS.prepare.launches, TS.lse_pass.launches)
+    before = timing.counters()
     x, y = _t(_rand(61, (40, 35))), _t(_rand(62, (30, 35)))
     assert TS.prepare(x, y) is None
     TS.sinkhorn_streamed(x, y, "cosine", 10.0, 3)
-    assert (TS.prepare.launches, TS.lse_pass.launches) == before
+    assert timing.counters() == before

@@ -20,6 +20,7 @@ from strotss_torch.parallel import make_mesh, stylize_batch
 from strotss_torch.parallel.mesh import batch_sharding
 from strotss_torch.parallel.transport import relaxed_emd_sharded
 from strotss_torch.utils import checkpoint as ckpt
+from strotss_torch.utils import timing
 
 #: the tests' tiny configuration (one tap, 32 samples, float32)
 TINY = dict(sample_size=32, compute_dtype="float32", use_pallas=False,
@@ -67,17 +68,15 @@ def sharded_remd(cases, device="cpu"):
     """For each (x, y, distance): ``relaxed_emd_sharded`` over a 1-D
     'sample' mesh of every rank, its value and the gradients of x and y,
     and the launches of kernel K1's wrapper."""
-    from strotss_torch.ops.kernels import remd
-
     mesh = make_mesh((dist.get_world_size(),), ("sample",),
                      devices=torch.device(device).type)
     out = []
     for x, y, distance in cases:
         xt = torch.tensor(x, device=device, requires_grad=True)
         yt = torch.tensor(y, device=device, requires_grad=True)
-        remd.mins.launches = 0
+        before = timing.counters().get("launch.remd_mins", 0)
         loss = relaxed_emd_sharded(xt, yt, mesh, distance)
-        launches = remd.mins.launches
+        launches = timing.counters().get("launch.remd_mins", 0) - before
         loss.backward()
         out.append((loss.item(), xt.grad.cpu().numpy(),
                     yt.grad.cpu().numpy(), launches))

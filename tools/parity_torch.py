@@ -163,14 +163,16 @@ def jax_cell(protocol, dtype, seeds, **over):
     return out
 
 
-def _launch_counters():
-    from strotss_torch.ops.kernels import block1, remd, selfsim, sinkhorn
+#: the kernels whose launches a cell reports (their wrappers' counters)
+KERNELS = ("remd_mins", "selfsim_fwd", "selfsim_bwd", "block1_fwd",
+           "block1_bwd", "sinkhorn_lse")
 
-    return {"remd_mins": remd.mins, "selfsim_fwd": selfsim.selfsim_fwd,
-            "selfsim_bwd": selfsim.selfsim_bwd,
-            "block1_fwd": block1.block1_fwd,
-            "block1_bwd": block1.block1_bwd,
-            "sinkhorn_lse": sinkhorn.lse_pass}
+
+def _launches():
+    from strotss_torch.utils import timing
+
+    now = timing.counters()
+    return {k: now.get("launch." + k, 0) for k in KERNELS}
 
 
 def cpu_draws(seed, cm, sm, device):
@@ -214,9 +216,7 @@ def torch_cell(protocol, dtype, seeds, device, coords="device", **over):
     params = torch_params()
     content, style, cm, sm = inputs(protocol)
     masks = {} if cm is None else {"content_masks": cm, "style_masks": sm}
-    counters = _launch_counters()
-    for fn in counters.values():
-        fn.launches = 0
+    before = _launches()
     out = {m: [] for m in METRICS}
     t0 = time.perf_counter()
     for seed in seeds:
@@ -238,7 +238,7 @@ def torch_cell(protocol, dtype, seeds, device, coords="device", **over):
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
     out["seconds"] = time.perf_counter() - t0
-    out["launches"] = {k: fn.launches for k, fn in counters.items()}
+    out["launches"] = {k: n - before[k] for k, n in _launches().items()}
     return out
 
 
