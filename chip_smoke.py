@@ -13,12 +13,14 @@ and backward at the 512 px content and style shapes, the 64 px content
 shape and a shape smaller than one forward tile, the Sinkhorn LSE pass
 at 32769 x 32769, a ragged shape and a shape just above its route
 threshold, with its operands' preparation held to their plain layout,
-and the streamed Sinkhorn loss and gradient), runs a short slice of the
+and the streamed Sinkhorn loss and gradient; the hypercolumn gathers,
+kernel pair K5, at the 512 px scale's 10 maps and at 32769 samples, rows
+bit for bit the plain route's, gradients bit for bit their mirror and
+within one unit in the last place of float64), runs a short slice of the
 64 px scale with the kernels and with the plain versions, and then drives
 the default stylization (VGG16, 9 taps, 1024 samples, 4 scales to 512 px)
-through
-``strotss_torch.stylize``, counting each kernel's launches. It drives the
-same run with two region masks (BASELINE config 3, masks loaded from PNGs
+through ``strotss_torch.stylize``, counting each kernel's launches (K5's
+too). It drives the same run with two region masks (BASELINE config 3, masks loaded from PNGs
 by ``strotss_torch.ops.masks.load_mask``), after holding one masked step's
 kernel losses to the plain ones. The batch phase runs 8 pairs at full
 width through ``strotss_torch.parallel.stylize_batch`` (BASELINE config
@@ -84,6 +86,9 @@ _REPLACES = {
     "block1_fwd": "strotss_tpu/ops/kernels/block1.py:194",
     "block1_bwd": "strotss_tpu/ops/kernels/block1.py:238",
     "sinkhorn_lse": "strotss_tpu/ops/kernels/sinkhorn.py:106",
+    # the JAX package gathers through XLA
+    "gather_fwd": "none (strotss_tpu/ops/sampling.py, XLA gathers)",
+    "gather_bwd": "none (strotss_tpu/ops/sampling.py, XLA gathers)",
 }
 _SOURCES = {
     "remd_mins": "strotss_torch/csrc/remd.cu",
@@ -92,6 +97,8 @@ _SOURCES = {
     "block1_fwd": "strotss_torch/csrc/block1.cu",
     "block1_bwd": "strotss_torch/csrc/block1.cu",
     "sinkhorn_lse": "strotss_torch/csrc/sinkhorn.cu",
+    "gather_fwd": "strotss_torch/csrc/gather.cu",
+    "gather_bwd": "strotss_torch/csrc/gather.cu",
 }
 
 
@@ -1019,6 +1026,219 @@ def phase_kernels(rates):
             "sinkhorn_lse": (lse_main, lse_yuv)}
 
 
+#: the 512 px scale's hypercolumn as the default run samples it: the image
+#: and block1's taps NHWC float32, blocks 2-5 NHWC views of NCHW bf16 maps
+#: (h, w, C, bf16 and NCHW-backed)
+_K5_MAPS = ((384, 512, 3, False), (384, 512, 64, False),
+            (384, 512, 64, False), (192, 256, 128, True),
+            (192, 256, 128, True), (96, 128, 256, True), (96, 128, 256, True),
+            (96, 128, 256, True), (48, 64, 512, True), (24, 32, 512, True))
+#: K5's kernels, by the names a profile gives them
+_K5_KERNELS = ("gather_fwd_kernel", "gather_sort_kernel",
+               "gather_acc_kernel")
+
+
+def _k5_maps(seed: int):
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    maps = []
+    for h, w, c, low in _K5_MAPS:
+        if low:
+            m = torch.randn(1, c, h, w, generator=gen, device="cuda")
+            maps.append(m.to(torch.bfloat16).permute(0, 2, 3, 1))
+        else:
+            maps.append(torch.randn(1, h, w, c, generator=gen,
+                                    device="cuda"))
+    return maps
+
+
+def _k5_grads_hold(coords, ys, g, grads, name):
+    """Each map's gradient bit for bit its mirror's, and within
+    ``gather.sum_bound`` of the float64 gradient (one unit in the last
+    place of the map's dtype plus float32's summation bound); returns the
+    largest error in units of that bound, the plain route's, and K5's
+    largest absolute error."""
+    import torch
+
+    from strotss_torch.ops import sampling
+    from strotss_torch.ops.kernels import gather
+
+    side = sampling._side(ys, True, True)
+    y64 = [y.detach().double().requires_grad_() for y in ys]
+    rows64 = sampling.sample_hypercolumn(y64, coords, True, True)
+    want = torch.autograd.grad(rows64, y64, g.double(), retain_graph=True)
+    mags = torch.autograd.grad(rows64, y64, g.double().abs())
+    plain = torch.autograd.grad(
+        sampling.sample_hypercolumn(ys, coords, True, True), ys, g)
+    worst, worst_plain, abs_err, col = 0.0, 0.0, 0.0, 0
+    for y, got, pl, w64, a64, fac, near in zip(ys, grads, plain, want, mags,
+                                               side.factors, side.nearest):
+        h, w, c = y.shape[-3:]
+        mirror = gather.grad_mirror(g[:, col:col + c].contiguous(), coords,
+                                    (h, w, c), fac, near, y.dtype)
+        check(torch.equal(got.reshape(h, w, c), mirror),
+              f"{name}: map {col}:{col + c} differs from its mirror")
+        bound = gather.sum_bound(
+            w64.reshape(h, w, c), a64.reshape(h, w, c),
+            gather.term_counts(coords, (h, w, c), fac, near), y.dtype)
+        for grad, acc in ((got, "k"), (pl, "p")):
+            err = (grad.reshape(h, w, c).double() - w64.reshape(h, w, c))
+            ratio = (err.abs() / bound.clamp_min(1e-300)).max().item()
+            ratio = 0.0 if ratio != ratio else ratio
+            if acc == "k":
+                worst = max(worst, ratio)
+                abs_err = max(abs_err, err.abs().max().item())
+            else:
+                worst_plain = max(worst_plain, ratio)
+        col += c
+    check(worst <= 1.0, f"{name}: a gradient lies {worst} bounds from the "
+          "float64 one")
+    return worst, worst_plain, abs_err
+
+
+def phase_gather(rates):
+    """K5 at the main path's 512 px scale (the 10 maps of VGG16's default
+    taps in their layouts, 1024 samples): the rows of both sides bit for
+    bit the plain route's in one launch, the style targets likewise; each
+    map's gradient bit for bit its mirror and within one unit in the last
+    place (plus float32's summation bound) of the float64 gradient,
+    bitwise the same in a second call, two launches; n = 32769 likewise
+    against the mirror. Then the times of the forward, the backward and
+    both against the plain route's, and the host time of the wrapper's
+    map table built anew against its cached plan. Returns the kernels
+    line's ``fwd`` and ``bwd`` entries."""
+    import torch
+
+    from strotss_torch.ops import sampling
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    xs = _k5_maps(1)
+    ys = [m.requires_grad_() for m in _k5_maps(2)]
+    coords = sampling.strided_grid_coords(gen, (384, 512), 1024, dev)
+    g = torch.randn(1024, 2179, generator=gen, device=dev)
+    before = _launches()
+    rows = sampling.sample_paired(coords, xs, ys, "kernel")
+    grads = torch.autograd.grad(rows[1], ys, g)
+    torch.cuda.synchronize()
+    launches = _launches(before)
+    check(launches == {**dict.fromkeys(KERNELS, 0), **_k5_want(1, 0)},
+          f"gather: launches {launches} for one call and its backward")
+    want = sampling.sample_paired(coords, xs, ys, "plain")
+    check(torch.equal(rows[0], want[0]) and torch.equal(rows[1], want[1]),
+          "gather: rows differ from the plain route's")
+    full = sampling.full_grid_coords(gen, (384, 512), 1024, dev)
+    check(torch.equal(sampling.sample_style(full, ys, "kernel"),
+                      sampling.sample_style(full, ys, "plain")),
+          "gather: style rows differ from the plain route's")
+    again = torch.autograd.grad(
+        sampling.sample_paired(coords, xs, ys, "kernel")[1], ys, g)
+    check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+          "gather: two backward calls differ")
+    ulps, ulps_plain, abs_err = _k5_grads_hold(coords, ys, g, grads,
+                                               "gather")
+    big = sampling.strided_grid_coords(gen, (384, 512), 32769, dev)
+    g_big = torch.randn(32769, 2179, generator=gen, device=dev)
+    rows_big = sampling.sample_paired(big, xs, ys, "kernel")
+    want_big = sampling.sample_paired(big, xs, ys, "plain")
+    check(torch.equal(rows_big[0], want_big[0])
+          and torch.equal(rows_big[1], want_big[1]),
+          "gather n=32769: rows differ from the plain route's")
+    ulps_big, _, _ = _k5_grads_hold(big, ys, g_big, torch.autograd.grad(
+        rows_big[1], ys, g_big), "gather n=32769")
+    del rows_big, want_big
+
+    def step(impl):
+        def fn():
+            r = sampling.sample_paired(coords, xs, ys, impl)
+            torch.autograd.grad(r[1], ys, g)
+        return fn
+
+    def forward(impl):
+        def fn():
+            with torch.no_grad():
+                sampling.sample_paired(coords, xs, ys, impl)
+        return fn
+
+    def backward(impl):
+        r = sampling.sample_paired(coords, xs, ys, impl)[1]
+        return lambda: torch.autograd.grad(r, ys, g, retain_graph=True)
+
+    def host_ms(fn, reps=50):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        ms = (time.perf_counter() - t0) / reps * 1e3
+        torch.cuda.synchronize()
+        return ms
+
+    # the least traffic: each side's rows written; a float32 map (factor
+    # 1, nearest) read a row a sample, a bf16 map four corner rows a
+    # sample, and no map more than once whole
+    nbytes_fwd = 2 * (1024 * 2179 * 4 + sum(
+        min(h * w, 4 * 1024) * c * 2 if low else min(h * w, 1024) * c * 4
+        for h, w, c, low in _K5_MAPS))
+    # the cotangent read and every map's dense gradient written
+    nbytes_bwd = 1024 * 2179 * 4 + sum(h * w * c * (2 if low else 4)
+                                       for h, w, c, low in _K5_MAPS)
+    fwd, bwd = {"max_abs_err": 0.0}, {"max_abs_err": abs_err}
+    for entry, fn, nbytes, kernels in (
+            (fwd, forward, nbytes_fwd, _K5_KERNELS[:1]),
+            (bwd, backward, nbytes_bwd, _K5_KERNELS[1:])):
+        entry.update(ms=time_ms(fn("kernel")),
+                     plain_ms=time_ms(fn("plain")),
+                     host_ms=host_ms(fn("kernel")),
+                     plain_host_ms=host_ms(fn("plain")),
+                     device_ms=device_ms(step("kernel"), kernels),
+                     library_ms=None)
+        entry["bound_ms"], entry["bound_by"] = bound_ms(0, nbytes, rates)
+    for name in _K5_KERNELS[1:]:
+        bwd[name + "_device_ms"] = device_ms(step("kernel"), (name,))
+    bwd.update(grad_err_in_bounds=ulps, plain_grad_err_in_bounds=ulps_plain,
+               grad_err_in_bounds_n32769=ulps_big)
+    both = {"ms": time_ms(step("kernel")), "plain_ms": time_ms(step("plain")),
+            "host_ms": host_ms(step("kernel")),
+            "plain_host_ms": host_ms(step("plain")),
+            "device_ms": device_ms(step("kernel"), _K5_KERNELS)}
+    both["bound_ms"], both["bound_by"] = bound_ms(
+        0, nbytes_fwd + nbytes_bwd, rates)
+    bwd["fwd_bwd"] = both
+    fwd["table_host_us"] = _k5_table_us(xs, ys)
+    emit({"phase": "gather", "launches": launches, "fwd": fwd, "bwd": bwd})
+    return {"fwd": fwd, "bwd": bwd}
+
+
+def _k5_table_us(xs, ys, reps=2000):
+    """Host microseconds of the wrapper's set-up of one paired call: the
+    sides' factors and lookups (``sampling._side``), and the map table
+    with the backward's, made anew (``gather._Plan``) against the cached
+    plan's hit (``gather._plan``)."""
+    from strotss_torch.ops import sampling
+    from strotss_torch.ops.kernels import gather
+
+    def us(fn):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) / reps * 1e6
+
+    sides = [sampling._side(xs, True, True), sampling._side(ys, True, True)]
+    dev = xs[0].get_device()
+    need = tuple(range(len(xs), len(xs) + len(ys)))
+    return {"sides": us(lambda: [sampling._side(f, True, True)
+                                 for f in (xs, ys)]),
+            "plan_cached": us(lambda: gather._plan(sides, dev)
+                              .backward(need)),
+            "plan_anew": us(lambda: gather._Plan(sides, dev)
+                            .backward(need))}
+
+
 def _smooth_image(h: int, w: int, seed: int) -> np.ndarray:
     """(1, h, w, 3) float32 in [0, 1]: random 16-px blocks smoothed by an
     18-px box blur, so the VGG features are not white noise."""
@@ -1155,7 +1375,16 @@ def phase_slice(vgg_params):
 #: the kernels whose wrappers count their launches (``launch.<name>``),
 #: by the kernel's name in the kernels line
 KERNELS = ("remd_mins", "selfsim_fwd", "selfsim_bwd", "block1_fwd",
-           "block1_bwd", "sinkhorn_lse", "sinkhorn_prep")
+           "block1_bwd", "sinkhorn_lse", "sinkhorn_prep", "gather_fwd",
+           "gather_bwd")
+
+
+def _k5_want(paired: int, style: int) -> dict:
+    """K5's launches in a run of ``paired`` ``sample_paired`` calls (one a
+    region a pair a step), each with its backward's two launches, and
+    ``style`` style-target calls (one a region, or a style, a pair a
+    scale; no backward)."""
+    return {"gather_fwd": paired + style, "gather_bwd": 2 * paired}
 
 
 def _launches(since=None):
@@ -1240,7 +1469,8 @@ def phase_main():
     # style at each scale
     want = {"remd_mins": 2 * steps, "selfsim_fwd": steps,
             "selfsim_bwd": steps, "block1_fwd": steps + 2 * cfg.levels,
-            "block1_bwd": steps, "sinkhorn_lse": 0, "sinkhorn_prep": 0}
+            "block1_bwd": steps, "sinkhorn_lse": 0, "sinkhorn_prep": 0,
+            **_k5_want(steps, cfg.levels)}
     check(launches == want, f"main: launches {launches}, want {want}")
     return launches, info
 
@@ -1275,10 +1505,13 @@ def phase_sinkhorn(cosine_pass_ms):
           "reduced depth: use_sinkhorn, 5 scales to 1024 px, 2048 samples, "
           "10 steps a scale, plain materialized Sinkhorn", **summary})
     _check_curves("sinkhorn (a)", info, falls=True)
+    steps_a = cfg_a.levels * cfg_a.max_iter
     check(launches["sinkhorn_lse"] == 0 and launches["sinkhorn_prep"] == 0
-          and launches["remd_mins"] == 0,
+          and launches["remd_mins"] == 0
+          and {k: launches[k] for k in ("gather_fwd", "gather_bwd")}
+          == _k5_want(steps_a, cfg_a.levels),
           f"sinkhorn (a): launches {launches}, want no sinkhorn_lse, "
-          "sinkhorn_prep or remd_mins")
+          f"sinkhorn_prep or remd_mins, K5 {_k5_want(steps_a, cfg_a.levels)}")
     check(img.dtype == torch.uint8 and max(img.shape[:2]) == 1024,
           f"sinkhorn (a): output {img.dtype} {tuple(img.shape)}")
 
@@ -1317,7 +1550,7 @@ def phase_sinkhorn(cosine_pass_ms):
     want = {"remd_mins": 0, "selfsim_fwd": steps, "selfsim_bwd": steps,
             "block1_fwd": steps + 2 * cfg_b.levels, "block1_bwd": steps,
             "sinkhorn_lse": steps * 2 * cfg_b.sinkhorn_iters * 2,
-            "sinkhorn_prep": steps * 2}
+            "sinkhorn_prep": steps * 2, **_k5_want(steps, cfg_b.levels)}
     check(launches == want, f"sinkhorn (b): launches {launches}, want {want}")
     hw = resize_max_hw(*content.shape[1:3], cfg_b.scale_sizes()[-1])
     check(img.dtype == torch.uint8 and tuple(img.shape) == (*hw, 3),
@@ -1463,7 +1696,8 @@ def phase_masked(vgg_params):
           "(384, 512, 3)")
     want = {"remd_mins": 2 * k * steps, "selfsim_fwd": k * steps,
             "selfsim_bwd": k * steps, "block1_fwd": steps + 2 * cfg.levels,
-            "block1_bwd": steps, "sinkhorn_lse": 0, "sinkhorn_prep": 0}
+            "block1_bwd": steps, "sinkhorn_lse": 0, "sinkhorn_prep": 0,
+            **_k5_want(k * steps, k * cfg.levels)}
     check(launches == want, f"masked: launches {launches}, want {want}")
     return launches
 
@@ -1623,7 +1857,8 @@ def phase_batch(main_info):
           f"batch: alphas {info['scales'][0]['alpha']}")
     want = {"remd_mins": 2 * b * steps, "selfsim_fwd": b * steps,
             "selfsim_bwd": b * steps, "block1_fwd": steps + 2 * cfg.levels,
-            "block1_bwd": steps, "sinkhorn_lse": 0, "sinkhorn_prep": 0}
+            "block1_bwd": steps, "sinkhorn_lse": 0, "sinkhorn_prep": 0,
+            **_k5_want(b * steps, b * cfg.levels)}
     check(launches == want, f"batch: launches {launches}, want {want}")
     del imgs, info
     torch.cuda.empty_cache()
@@ -1658,7 +1893,8 @@ def phase_batch(main_info):
     mwant = {"remd_mins": 2 * 3 * msteps, "selfsim_fwd": 3 * msteps,
              "selfsim_bwd": 3 * msteps,
              "block1_fwd": msteps + 2 * mcfg.levels, "block1_bwd": msteps,
-             "sinkhorn_lse": 0, "sinkhorn_prep": 0}
+             "sinkhorn_lse": 0, "sinkhorn_prep": 0,
+             **_k5_want(3 * msteps, 3 * mcfg.levels)}
     check(mlaunches == mwant,
           f"batch masked: launches {mlaunches}, want {mwant}")
     torch.cuda.empty_cache()
@@ -2002,7 +2238,8 @@ def phase_features(main_info, max_iter=200):
               f"features: blended output {img.dtype} {tuple(img.shape)}")
         want = {"remd_mins": 2 * steps, "selfsim_fwd": steps,
                 "selfsim_bwd": steps, "block1_fwd": steps + 3 * cfg.levels,
-                "block1_bwd": steps, "sinkhorn_lse": 0, "sinkhorn_prep": 0}
+                "block1_bwd": steps, "sinkhorn_lse": 0, "sinkhorn_prep": 0,
+                **_k5_want(steps, 2 * cfg.levels)}
         check(launches == want,
               f"features: blended launches {launches}, want {want}")
         blended = launches
@@ -2048,7 +2285,8 @@ def phase_features(main_info, max_iter=200):
         rest = 2 * cfg.max_iter - half  # scale 256's rest and scale 512
         want = {"remd_mins": 2 * rest, "selfsim_fwd": rest,
                 "selfsim_bwd": rest, "block1_fwd": rest + 3 * 2,
-                "block1_bwd": rest, "sinkhorn_lse": 0, "sinkhorn_prep": 0}
+                "block1_bwd": rest, "sinkhorn_lse": 0, "sinkhorn_prep": 0,
+                **_k5_want(rest, 2 * 2)}
         check(launches_r == want,
               f"features: resume launches {launches_r}, want {want}")
         _check_curves("features resume", info_r, falls=False)
@@ -2069,7 +2307,7 @@ def phase_features(main_info, max_iter=200):
                     "selfsim_bwd": max_iter,
                     "block1_fwd": (2 if remat else 1) * max_iter + 2,
                     "block1_bwd": max_iter, "sinkhorn_lse": 0,
-                    "sinkhorn_prep": 0}
+                    "sinkhorn_prep": 0, **_k5_want(max_iter, 1)}
             check(launches_f == want, f"features: refine (remat {remat}) "
                   f"launches {launches_f}, want {want}")
             check([s["scale"] for s in info_f["scales"]] == [512]
@@ -2182,9 +2420,10 @@ def _rank_remd(cases):
     distance, seed): whether the gathered row minima and their argmins
     and the column minima and argmins are the unsharded K1's bit for bit;
     the loss of ``transport.remd_over_group`` against the unsharded
-    ``relaxed_emd`` (relative); its x gradient, after the all-reduce,
-    against the unsharded one (over max|g|); and the K1 launches of the
-    sharded loss on this rank."""
+    ``relaxed_emd`` (relative); its x and y gradients, after the
+    all-reduces, against the unsharded ones (over max|g|, the larger: a
+    step's prediction is the y, split); and the K1 launches of the sharded
+    loss on this rank."""
     import torch
     import torch.distributed as dist
 
@@ -2216,20 +2455,21 @@ def _rank_remd(cases):
                 "rowarg": torch.equal(row_arg, full[2]),
                 "colmin": torch.equal(col_min, full[1]),
                 "colarg": torch.equal(col_arg, full[3])}
-        xs = x.clone().requires_grad_(True)
+        xs, ys = (t.clone().requires_grad_(True) for t in (x, y))
         before = _launches()
-        loss = remd_over_group(xs, y, dist.group.WORLD, distance)
+        loss = remd_over_group(xs, ys, dist.group.WORLD, distance)
         launches = _launches(before)["remd_mins"]
-        g, = torch.autograd.grad(loss, xs)
-        xu = x.clone().requires_grad_(True)
-        ref = relaxed_emd(xu, y, distance)
-        gu, = torch.autograd.grad(ref, xu)
+        gx, gy = torch.autograd.grad(loss, (xs, ys))
+        xu, yu = (t.clone().requires_grad_(True) for t in (x, y))
+        ref = relaxed_emd(xu, yu, distance)
+        gxu, gyu = torch.autograd.grad(ref, (xu, yu))
         out.append({"shape": [n, m, c], "distance": distance,
                     "shard_rows": [lo, lo + local[1].numel()],
                     "bitwise": same,
                     "loss_rel_err": abs(loss.item() - ref.item())
                     / abs(ref.item()),
-                    "grad_err": _grad_err(g, gu), "k1_launches": launches})
+                    "grad_err": max(_grad_err(gx, gxu), _grad_err(gy, gyu)),
+                    "k1_launches": launches})
     return out
 
 
@@ -2712,7 +2952,7 @@ def phase_multi():
     world-size-1 NCCL mesh; (b) REMD at 1024 x 1024 x 2179 cosine and
     1024 x 1024 x 3 'both' with K1 on each rank's 512-column shard: the
     minima and argmins bit for bit the unsharded K1's, the loss to rtol
-    1e-6, the gradient to 1e-4 of max|g|, one K1 launch a rank a call;
+    1e-6, both gradients to 1e-4 of max|g|, one K1 launch a rank a call;
     (c) a full-width ``shard_samples`` run (VGG16, 9 taps, 1024 samples,
     4 scales x 10 steps) on both ranks: every step's losses within rtol
     1e-3 and its gradient with respect to the taps within 1e-4 of max|g|
@@ -2796,7 +3036,8 @@ def phase_multi():
     check(all(all(s["falls"]) for s in sh), "multi (c): a loss did not fall")
     want = {"remd_mins": 2 * 4 * steps, "selfsim_fwd": 4 * steps,
             "selfsim_bwd": 4 * steps, "block1_fwd": 4 * steps + 8,
-            "block1_bwd": 4 * steps, "sinkhorn_lse": 0, "sinkhorn_prep": 0}
+            "block1_bwd": 4 * steps, "sinkhorn_lse": 0, "sinkhorn_prep": 0,
+            **_k5_want(4 * steps, 4)}
     check(all(s["launches"] == want for s in sh),
           f"multi (c): launches {[s['launches'] for s in sh]}, want {want}")
     # (d): each rank runs 2 pairs, so the one rank's runs of the same 2
@@ -2856,9 +3097,12 @@ def phase_multi():
           "multi (g): the ranks' pyramids differ")
     check(all(all(s["falls"]) for s in sp), "multi (g): a loss did not fall")
     n = 4 * spatial_steps
+    # K5 samples the image's column alone, of the content and of the
+    # prediction apart: two forward launches a step, one backward
     want = {"remd_mins": 2 * n, "selfsim_fwd": n, "selfsim_bwd": n,
             "block1_fwd": n + 8, "block1_bwd": n, "sinkhorn_lse": 0,
-            "sinkhorn_prep": 0}
+            "sinkhorn_prep": 0, "gather_fwd": 2 * n + 4,
+            "gather_bwd": 2 * n}
     check(all(s["launches"] == want for s in sp),
           f"multi (g): launches {[s['launches'] for s in sp]}, want {want}")
     floor = one["spatial"]
@@ -2902,7 +3146,7 @@ def phase_multi():
               "multi (j): a scale left no pyramid digest")
         want = {"remd_mins": 0, "selfsim_fwd": n, "selfsim_bwd": n,
                 "block1_fwd": n + 8, "block1_bwd": n, "sinkhorn_lse": 0,
-                "sinkhorn_prep": 0}
+                "sinkhorn_prep": 0, **_k5_want(n, 4)}
         check(all(s["launches"] == want for s in runs),
               f"multi (j): launches at {per} steps a scale "
               f"{[s['launches'] for s in runs]}, want {want}")
@@ -2984,6 +3228,10 @@ _K2_FIELDS = ("host_ms", "bound_fp32_cores_ms", "sign_flips", "split")
 
 #: K4's own fields in the kernels line
 _K4_FIELDS = ("library_ms", "split", "prep_ms", "prep_launches")
+#: K5's own fields in the kernels line
+_K5_FIELDS = ("plain_host_ms", "table_host_us", "gather_sort_kernel_device_ms",
+              "gather_acc_kernel_device_ms", "grad_err_in_bounds",
+              "plain_grad_err_in_bounds", "grad_err_in_bounds_n32769")
 
 
 def _with_yuv(main, yuv):
@@ -3009,7 +3257,9 @@ def kernels_line(meas, launches, masked, features, batched, multi,
     ``launches_multi_sinkhorn_per_rank``. The block1 rows
     carry the pair axis's times
     (B = 8 images at the batch's 64 px and 512 px content shapes: one
-    launch, and B one-image launches as ``singles_ms``)."""
+    launch, and B one-image launches as ``singles_ms``); the gather rows
+    (K5) the gather phase's, at the 512 px scale's 10 maps and 1024
+    samples."""
     ss_big = meas["selfsim_32769"]
     rows = [("remd_mins", _with_yuv(*meas["remd_mins"]))]
     for name in ("fwd", "bwd"):
@@ -3028,6 +3278,7 @@ def kernels_line(meas, launches, masked, features, batched, multi,
     rows.append(("sinkhorn_lse", dict(_with_yuv(*meas["sinkhorn_lse"]),
                                       prep_launches=launches[
                                           "sinkhorn_prep"])))
+    rows += [(f"gather_{d}", meas["gather"][d]) for d in ("fwd", "bwd")]
     out = []
     for name, m in rows:
         out.append({
@@ -3045,7 +3296,7 @@ def kernels_line(meas, launches, masked, features, batched, multi,
             "device_ms": m["device_ms"],
             **{k: v for k, v in m.items() if k in (
                 "yuv_both_c3", "n_32769", "fwd_bwd", "batched") + _K1_FIELDS
-               + _K2_FIELDS + _K4_FIELDS[1:]},
+               + _K2_FIELDS + _K4_FIELDS[1:] + _K5_FIELDS},
         })
     return {"kernels": out}
 
@@ -3071,6 +3322,7 @@ def main() -> int:
         _, rates = peaks(name)
         phase_build()
         meas = phase_kernels(rates)
+        meas["gather"] = phase_gather(rates)
         from strotss_torch.models.weights import random_params
 
         # seeded random weights: the card's machine has no pretrained VGG

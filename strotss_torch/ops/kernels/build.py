@@ -22,7 +22,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "strotss_torch")
-SOURCES = ("remd", "selfsim", "block1", "sinkhorn")
+SOURCES = ("remd", "selfsim", "block1", "sinkhorn", "gather")
 
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -47,6 +47,8 @@ _SIGNATURES = {
                                    _I, _P]),
     "sinkhorn_lse": ("sinkhorn", [_P, _P, _I, _P, _P, _I, _P] + [_I] * 4
                      + [_F, _I, _P, _P, _P]),
+    "gather_fwd": ("gather", [_P, _I, _P, _I, _P, _P, _P]),
+    "gather_bwd": ("gather", [_P, _I, _P, _I, _P, _P, _P, _P]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

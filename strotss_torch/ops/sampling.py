@@ -22,6 +22,12 @@ replacement, as in the JAX package), so shapes stay fixed. Every gather
 takes its coordinates as an argument; ``coords[:, 0]`` indexes H. The JAX
 package's one-hot-matmul sampling gate (a TPU measurement) is not ported:
 all lookups are gathers.
+
+``impl`` selects the gathers' route: ``'plain'`` (the PyTorch gathers
+below, under autograd), ``'kernel'`` (kernel pair K5,
+:mod:`strotss_torch.ops.kernels.gather`: every map of both sides in one
+launch, bit for bit the plain rows, and a deterministic float32 backward)
+or ``'auto'`` (K5 on CUDA coordinates, plain on the CPU).
 """
 
 from __future__ import annotations
@@ -32,6 +38,8 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from strotss_torch.ops.image import resize_bilinear
+from strotss_torch.ops.kernels import gather
+from strotss_torch.ops.kernels.common import resolve_impl
 
 
 def coordinate_factors(shapes: Sequence[Tuple[int, int]]) -> List[float]:
@@ -202,9 +210,22 @@ def nearest_gather(fmap: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     return fmap[gx, gy]
 
 
+def _side(feats: Sequence[torch.Tensor], bilinear: bool,
+          integer_coords: bool) -> gather.Side:
+    """The maps with their factors and lookups (as
+    :func:`sample_hypercolumn` chooses them), as K5 takes them; a map of
+    more than one image is sampled at its first, as the plain route
+    does."""
+    maps = [f[0] if f.ndim == 4 and f.shape[0] != 1 else f for f in feats]
+    factors = coordinate_factors([f.shape[-3:-1] for f in maps])
+    return gather.Side(maps, factors,
+                       [not bilinear or (integer_coords and fac == 1.0)
+                        for fac in factors])
+
+
 def sample_hypercolumn(feats: Sequence[torch.Tensor], coords: torch.Tensor,
-                       bilinear: bool = True,
-                       integer_coords: bool = False) -> torch.Tensor:
+                       bilinear: bool = True, integer_coords: bool = False,
+                       impl: str = "plain") -> torch.Tensor:
     """Sample every map at (rescaled) ``coords``; concat channels, float32.
 
     ``integer_coords=True`` asserts the base coords are exact integers
@@ -212,10 +233,13 @@ def sample_hypercolumn(feats: Sequence[torch.Tensor], coords: torch.Tensor,
     which equals the bilinear one there. ``feats`` may be a hypercolumn
     split by height over ranks
     (:class:`strotss_torch.parallel.spatial.SlabColumns`), which samples
-    itself: the same rows, bit for bit.
+    itself: the same rows, bit for bit. ``impl``: the module doc's.
     """
     if hasattr(feats, "sample"):
-        return feats.sample(coords, bilinear, integer_coords)
+        return feats.sample(coords, bilinear, integer_coords, impl)
+    if resolve_impl(impl, coords) == "kernel":
+        return gather.rows(coords, [_side(feats, bilinear,
+                                          integer_coords)])[0]
     shapes = [tuple(_squeeze_map(f).shape[:2]) for f in feats]
     factors = coordinate_factors(shapes)
     parts = []
@@ -229,16 +253,21 @@ def sample_hypercolumn(feats: Sequence[torch.Tensor], coords: torch.Tensor,
     return torch.cat(parts, dim=1)
 
 
-def sample_style(coords: torch.Tensor,
-                 feats: Sequence[torch.Tensor]) -> torch.Tensor:
+def sample_style(coords: torch.Tensor, feats: Sequence[torch.Tensor],
+                 impl: str = "plain") -> torch.Tensor:
     """Style targets at full-grid ``coords`` (nearest lookup)."""
-    return sample_hypercolumn(feats, coords, bilinear=False)
+    return sample_hypercolumn(feats, coords, bilinear=False, impl=impl)
 
 
 def sample_paired(coords: torch.Tensor, xs: Sequence[torch.Tensor],
-                  ys: Sequence[torch.Tensor]):
-    """Content and prediction rows at the same strided-grid ``coords``."""
+                  ys: Sequence[torch.Tensor], impl: str = "plain"):
+    """Content and prediction rows at the same strided-grid ``coords``;
+    under K5 both sides in one launch."""
+    if (not hasattr(xs, "sample") and not hasattr(ys, "sample")
+            and resolve_impl(impl, coords) == "kernel"):
+        return gather.rows(coords, [_side(xs, True, True),
+                                    _side(ys, True, True)])
     return (
-        sample_hypercolumn(xs, coords, bilinear=True, integer_coords=True),
-        sample_hypercolumn(ys, coords, bilinear=True, integer_coords=True),
+        sample_hypercolumn(xs, coords, True, True, impl),
+        sample_hypercolumn(ys, coords, True, True, impl),
     )

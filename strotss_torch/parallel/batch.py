@@ -139,7 +139,8 @@ def prepare_scale_batch(spec: StepSpec, mode: str, chw, shw, levels: int,
             xy = _pair_coords(coords_source, style_gens[b], b, scale_index,
                               "style", -1, shw, n, device, smasks, regs)
             feats = [f[b] for f in style_feats]
-            t = (torch.stack([sample_style(c, feats) for c in xy])
+            t = (torch.stack([sample_style(c, feats, spec.sample_impl)
+                              for c in xy])
                  if len(xy) else xy.new_zeros((0, n, 0)))
             targets.append(t)
             moments.append([moment_stats(r) for r in t])

@@ -461,9 +461,11 @@ class SlabColumns:
         return torch.where(own[:, None], out, out.new_zeros(()))
 
     def sample(self, coords: torch.Tensor, bilinear: bool = True,
-               integer_coords: bool = False) -> torch.Tensor:
+               integer_coords: bool = False,
+               impl: str = "plain") -> torch.Tensor:
         """:func:`strotss_torch.ops.sampling.sample_hypercolumn` of the
-        whole maps: (n, C) float32 rows, the same on every rank."""
+        whole maps: (n, C) float32 rows, the same on every rank. The taps'
+        slab gathers are plain; the image's column takes ``impl``."""
         shapes = self.shapes()
         factors = coordinate_factors(shapes)
         parts = []
@@ -473,7 +475,8 @@ class SlabColumns:
             parts.append(self._gather(i, c, shapes[i + 1], nearest))
         taps = _Summed.apply(torch.cat(parts, dim=1), self.slab.group)
         return torch.cat([sample_hypercolumn([self.image], coords, bilinear,
-                                             integer_coords), taps], dim=1)
+                                             integer_coords, impl), taps],
+                         dim=1)
 
 
 class Spatial:

@@ -4,11 +4,15 @@ and Sinkhorn, the counterpart of the materialized
 ``strotss_tpu.ops.losses.sinkhorn`` that GSPMD partitions under
 ``shard_samples`` (``strotss_tpu/programs.py:567-583``).
 
-Every rank of the 'sample' group holds the whole prediction block x
-(N, C) and the whole style block y (M, C), and runs kernel K1
+Every rank of the 'sample' group holds the whole of x (N, C) and of y
+(M, C), and runs kernel K1
 (:func:`strotss_torch.ops.kernels.remd.remd_mins`) on x against its
 ``torch.tensor_split`` shard of y's rows, so each rank's K1 sweeps
-N x M/p pairs. Then:
+N x M/p pairs, and its minima and argmins are those of the unsharded
+K1(x, y)'s columns, bit for bit. A step passes (style targets,
+prediction), the operand order of its unsharded ``relaxed_emd``: in the
+other order K1 rounds some distances 1 ulp apart, and a near-tie can pick
+another argmin than the unsharded step does. Then:
 
 - row minima: each rank's (N,) minima over its columns are gathered to
   (p, N), and the minimum over the rank axis is the row minimum; its

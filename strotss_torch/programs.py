@@ -16,9 +16,12 @@ the JAX package's per-scale compiled programs become a Python loop over
 steps (and over regions and pairs).
 
 Under ``shard_samples`` both transport terms, REMD or Sinkhorn, split
-the style targets' rows over the mesh's 'sample' ranks
-(:mod:`strotss_torch.parallel.transport`: K1 on each rank's shard, or
-the materialized Sinkhorn on each rank's rows of the cost matrix); the
+their samples over the mesh's 'sample' ranks
+(:mod:`strotss_torch.parallel.transport`): REMD the prediction's rows,
+K1 running on each rank's shard as (targets, prediction shard), the
+unsharded step's operand order, so that each rank's distances and
+argmins are the unsharded K1's columns bit for bit; Sinkhorn the style
+targets' rows, the materialized cost matrix's rows on each rank; the
 content loss (K2a, K2b) and the moments stay whole on every rank, since
 K2a has no row-range interface. The JAX package forces its plain XLA
 losses under sharding (``strotss_tpu/programs.py:111-118``); the port
@@ -65,7 +68,9 @@ class StepSpec(NamedTuple):
     :func:`step_losses` as an argument. ``shard_spatial``: VGG runs on
     each rank's rows of the image over the mesh's 'spatial' axis
     (:mod:`strotss_torch.parallel.spatial`), which comes to
-    :func:`optimization_steps` as an argument.
+    :func:`optimization_steps` as an argument. ``sample_impl`` is the
+    hypercolumn gathers' route (:mod:`strotss_torch.ops.sampling`):
+    ``'auto'`` (kernel K5 on a CUDA device), ``'plain'`` or ``'kernel'``.
     """
 
     sample_size: int
@@ -82,6 +87,7 @@ class StepSpec(NamedTuple):
     remat: bool = False
     shard_samples: bool = False
     shard_spatial: bool = False
+    sample_impl: str = "plain"
 
 
 def _block1_route(cfg: StrotssConfig, device) -> str:
@@ -138,6 +144,7 @@ def spec_from_config(cfg: StrotssConfig, device="cpu",
         remat=cfg.remat,
         shard_samples=cfg.shard_samples,
         shard_spatial=cfg.shard_spatial,
+        sample_impl=impl,
     )
 
 
@@ -336,10 +343,11 @@ def step_losses(spec: StepSpec, content_feats, pred, style_targets,
     replace the 1/K of the mean (a batch's ``region_valid`` weights).
     ``pair``: the pair's index in a batch, for the spans only.
 
-    Under ``spec.shard_samples`` both transport terms split the style
-    targets' rows over ``sample_group`` (the mesh's 'sample' process
-    group): REMD with K1 running on each rank's shard, Sinkhorn with each
-    rank's rows of the materialized cost matrix. The content loss (K2a,
+    Under ``spec.shard_samples`` both transport terms split their samples
+    over ``sample_group`` (the mesh's 'sample' process group): REMD the
+    prediction's rows, with K1 running on (targets, this rank's shard),
+    Sinkhorn the targets' rows, each rank's rows of the materialized cost
+    matrix. The content loss (K2a,
     K2b) and the moments stay whole on every rank: K2a has no row-range
     interface, and at N = 1024 the pair takes 0.491 ms of device time a
     step on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md's kernel table, K2
@@ -353,9 +361,11 @@ def step_losses(spec: StepSpec, content_feats, pred, style_targets,
             sinkhorn_over_group,
         )
 
-        # the prediction whole on every rank, the targets split
+        # K1 takes (target, prediction) as unsharded: a near-tie of two
+        # distances is then rounded the same on a rank, and picks the same
+        # argmin, as in the unsharded step
         def remd(target, p_feat, distance):
-            return remd_over_group(p_feat, target, sample_group, distance,
+            return remd_over_group(target, p_feat, sample_group, distance,
                                    spec.remd_impl)
 
         def sinkhorn(target, p_feat, distance):
@@ -367,7 +377,8 @@ def step_losses(spec: StepSpec, content_feats, pred, style_targets,
     for r, (xy, target, tmom) in enumerate(zip(coords, style_targets,
                                                style_moments)):
         with span("loss.sample", region=r, pair=pair):
-            c_feat, p_feat = sample_paired(xy, content_feats, pred)
+            c_feat, p_feat = sample_paired(xy, content_feats, pred,
+                                           spec.sample_impl)
         with span("loss.content", region=r, pair=pair):
             lc_r = content_loss(c_feat, p_feat, impl=spec.selfsim_impl)
         with span("loss.style", region=r, pair=pair):

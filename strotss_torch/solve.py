@@ -413,7 +413,8 @@ def stylize_single(
                                                                 spatial)
                             style_targets = _style_targets(
                                 vgg, coords_source, style_gen, i, scl_s, shw,
-                                n, style_ns, device, style_masks, spatial)
+                                n, style_ns, device, style_masks, spatial,
+                                spec.sample_impl)
                             style_moments = [moment_stats(t)
                                              for t in style_targets]
                         cmasks = ([prepare_mask(m, chw)
@@ -493,13 +494,14 @@ def stylize_single(
 
 
 def _style_targets(vgg, coords_source, gen, i, scl_s, shw, n, style_ns,
-                   device, style_masks, spatial=None) -> torch.Tensor:
+                   device, style_masks, spatial=None,
+                   impl: str = "plain") -> torch.Tensor:
     """(K, n, C) style targets of one scale, drawn from the scale's style
     generator: one a region of the raw ``style_masks`` (K = 1 without
     masks) or, under blending, ``style_ns[j]`` full-grid samples of each
     style ``j`` in turn, their rows concatenated
     (``strotss_tpu/programs.py:319-336``). Under ``spatial`` each style's
-    VGG runs on this rank's rows of it."""
+    VGG runs on this rank's rows of it. ``impl``: the gathers' route."""
     if style_ns is not None:
         parts = []
         for j, (img, hw, n_j) in enumerate(zip(scl_s, shw, style_ns)):
@@ -507,11 +509,12 @@ def _style_targets(vgg, coords_source, gen, i, scl_s, shw, n, style_ns,
                   if coords_source is not None
                   else full_grid_coords(gen, hw, n_j, device))
             parts.append(sample_style(xy, extract_hypercolumn(vgg, img,
-                                                              spatial)))
+                                                              spatial),
+                                      impl))
         return torch.cat(parts)[None]
     style_feats = extract_hypercolumn(vgg, scl_s, spatial)
     smasks = ([prepare_mask(m, shw) for m in style_masks]
               if style_masks is not None else [None])
     return torch.stack([
-        sample_style(xy, style_feats) for xy in _coords(
+        sample_style(xy, style_feats, impl) for xy in _coords(
             coords_source, gen, i, "style", -1, shw, n, device, smasks)])

@@ -22,7 +22,13 @@ order), tap2 and dx to 1e-3 (where that order moves y1 or dy1 across a
 bf16 rounding boundary, one operand moves by 2^-8). Sinkhorn LSE passes
 to 1e-5 of max|out| and the streamed loss to rtol 1e-4 of the
 materialized one, the JAX package's own tolerance for its compiled
-streamed kernel (30 iterations of float32 sums in another order).
+streamed kernel (30 iterations of float32 sums in another order). The
+hypercolumn gathers (K5): the rows bit for bit the plain route's (the same
+float32 operations, none fused); each map's gradient bit for bit its
+mirror's (``gather.grad_mirror``: the same sums in the same order) and
+within ``gather.sum_bound`` of the float64 gradient: one unit in the last
+place of the map's dtype, plus float32's own bound for the pixel's
+sequential sum.
 """
 
 import numpy as np
@@ -31,7 +37,9 @@ import torch
 
 from strotss_torch.models.weights import random_params
 from strotss_torch.ops import losses
-from strotss_torch.ops.kernels import block1, build, remd, selfsim, sinkhorn
+from strotss_torch.ops import sampling
+from strotss_torch.ops.kernels import (block1, build, gather, remd, selfsim,
+                                     sinkhorn)
 from strotss_torch.utils import timing
 
 
@@ -758,3 +766,186 @@ def test_block1_on_spatial_slabs_on_card(cuda_device):
     for r in ranks:
         np.testing.assert_allclose(r[0][2], dx, rtol=0,
                                    atol=1e-3 * np.abs(dx).max())
+
+
+#: the 512 px scale's hypercolumn as the default run samples it: the image
+#: and block1's taps NHWC float32, blocks 2-5 NHWC views of NCHW bf16 maps
+#: (h, w, C, dtype, NCHW-backed)
+_K5_MAPS = ((384, 512, 3, torch.float32, False),
+            (384, 512, 64, torch.float32, False),
+            (384, 512, 64, torch.float32, False),
+            (192, 256, 128, torch.bfloat16, True),
+            (192, 256, 128, torch.bfloat16, True),
+            (96, 128, 256, torch.bfloat16, True),
+            (96, 128, 256, torch.bfloat16, True),
+            (96, 128, 256, torch.bfloat16, True),
+            (48, 64, 512, torch.bfloat16, True),
+            (24, 32, 512, torch.bfloat16, True))
+
+
+def _k5_maps(seed, device, batch=1):
+    """(batch, h, w, C) maps of ``_K5_MAPS``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    maps = []
+    for h, w, c, dtype, nchw in _K5_MAPS:
+        if nchw:
+            m = torch.randn(batch, c, h, w, generator=gen, device=device)
+            maps.append(m.to(dtype).permute(0, 2, 3, 1))
+        else:
+            maps.append(torch.randn(batch, h, w, c, generator=gen,
+                                    device=device).to(dtype))
+    return maps
+
+
+def _k5_check_grads(coords, ys, g, grads):
+    """Each map's gradient: its mirror's bit for bit, within sum_bound of
+    the float64 gradient of the plain route."""
+    side = sampling._side(ys, True, True)
+    y64 = [y.detach().double().requires_grad_() for y in ys]
+    rows64 = sampling.sample_hypercolumn(y64, coords, True, True)
+    want = torch.autograd.grad(rows64, y64, g.double(), retain_graph=True)
+    # the weights are >= 0: this is sum |t| over each pixel's terms
+    mags = torch.autograd.grad(rows64, y64, g.double().abs())
+    col = 0
+    for y, got, w64, a64, fac, near in zip(ys, grads, want, mags,
+                                           side.factors, side.nearest):
+        h, w, c = y.shape[-3:]
+        gm = gather.grad_mirror(g[:, col:col + c].contiguous(), coords,
+                                (h, w, c), fac, near, y.dtype)
+        assert torch.equal(got.reshape(h, w, c), gm)
+        bound = gather.sum_bound(w64.reshape(h, w, c), a64.reshape(h, w, c),
+                                 gather.term_counts(coords, (h, w, c), fac,
+                                                    near), y.dtype)
+        err = (got.reshape(h, w, c).double() - w64.reshape(h, w, c)).abs()
+        assert bool((err <= bound).all())
+        col += c
+
+
+@pytest.mark.cuda
+def test_gather_rows_bit_for_bit_on_card(cuda_device):
+    """K5's forward at the 512 px scale's 10 maps, n = 1024: both sides'
+    rows in one launch, bit for bit the plain route's; the style targets
+    (nearest at every factor) likewise."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(3)
+    xs, ys = _k5_maps(1, cuda_device), _k5_maps(2, cuda_device)
+    coords = sampling.strided_grid_coords(gen, (384, 512), 1024, cuda_device)
+    before = _count("gather_fwd")
+    got = sampling.sample_paired(coords, xs, ys, "kernel")
+    assert _count("gather_fwd") == before + 1
+    want = sampling.sample_paired(coords, xs, ys, "plain")
+    assert got[0].shape == (1024, 2179)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    full = sampling.full_grid_coords(gen, (384, 512), 1024, cuda_device)
+    assert torch.equal(sampling.sample_style(full, ys, "kernel"),
+                       sampling.sample_style(full, ys, "plain"))
+
+
+@pytest.mark.cuda
+def test_gather_rows_on_unbind_views_on_card(cuda_device):
+    """An 8-pair batch's maps as the batched step takes them (``unbind``
+    views at an offset, no copies): pair 5's rows bit for bit."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(4)
+    xs = [m.unbind(0)[5] for m in _k5_maps(5, cuda_device, batch=8)]
+    ys = [m.unbind(0)[5] for m in _k5_maps(6, cuda_device, batch=8)]
+    coords = sampling.strided_grid_coords(gen, (384, 512), 1024, cuda_device)
+    got = sampling.sample_paired(coords, xs, ys, "kernel")
+    want = sampling.sample_paired(coords, xs, ys, "plain")
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_gather_backward_on_card(cuda_device):
+    """K5's backward at the 512 px scale, n = 1024: two launches a call,
+    each map's gradient dense in its own dtype and layout, bit for bit its
+    mirror and within one unit in the last place (plus float32's summation
+    bound) of the float64 gradient; bitwise the same in a second call; the
+    scratch's keys in the mirror's order."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(7)
+    xs = _k5_maps(1, cuda_device)
+    ys = [m.requires_grad_() for m in _k5_maps(2, cuda_device)]
+    coords = sampling.strided_grid_coords(gen, (384, 512), 1024, cuda_device)
+    g = torch.randn(1024, 2179, generator=gen, device=cuda_device)
+    before = _count("gather_bwd")
+    rows = sampling.sample_paired(coords, xs, ys, "kernel")[1]
+    grads = torch.autograd.grad(rows, ys, g)
+    assert _count("gather_bwd") == before + 2
+    for y, got in zip(ys, grads):
+        assert got.dtype == y.dtype and got.stride() == y.stride()
+    again = torch.autograd.grad(
+        sampling.sample_paired(coords, xs, ys, "kernel")[1], ys, g)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    _k5_check_grads(coords, ys, g, grads)
+    side = sampling._side(ys, True, True)
+    plan = gather._plan([side], coords.get_device())
+    _, scratch = gather.backward(coords, plan, tuple(range(len(ys))), [g])
+    keys = scratch.view(-1, 2)
+    off = 0
+    for y, fac, near in zip(ys, side.factors, side.nearest):
+        h, w = y.shape[-3:-1]
+        pix, _ = gather.corner_keys(coords, h, w, fac, near)
+        order = gather.key_order(pix)
+        k = keys[off:off + pix.shape[0]].long()
+        assert torch.equal(k[:, 1], order) and torch.equal(k[:, 0], pix[order])
+        off += pix.shape[0]
+
+
+@pytest.mark.cuda
+def test_gather_large_n_on_card(cuda_device):
+    """n = 32769 (the --sinkhorn path above the gate), more samples than
+    the 384 x 512 grid's points, so coordinates repeat: rows bit for bit,
+    gradients bit for bit their mirror."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(9)
+    xs = _k5_maps(3, cuda_device)
+    ys = [m.requires_grad_() for m in _k5_maps(4, cuda_device)]
+    coords = sampling.strided_grid_coords(gen, (384, 512), 32769,
+                                          cuda_device)
+    got = sampling.sample_paired(coords, xs, ys, "kernel")
+    want = sampling.sample_paired(coords, xs, ys, "plain")
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    g = torch.randn(32769, 2179, generator=gen, device=cuda_device)
+    grads = torch.autograd.grad(got[1], ys, g)
+    side = sampling._side(ys, True, True)
+    col = 0
+    for y, got_g, fac, near in zip(ys, grads, side.factors, side.nearest):
+        h, w, c = y.shape[-3:]
+        want_g = gather.grad_mirror(g[:, col:col + c].contiguous(), coords,
+                                    (h, w, c), fac, near, y.dtype)
+        assert torch.equal(got_g.reshape(h, w, c), want_g)
+        col += c
+
+
+@pytest.mark.cuda
+def test_gather_launches_in_runs_on_card(cuda_device):
+    """Every paired and style sample of a run goes through K5: a forward a
+    region a pair a step plus one a region a pair a scale for the style
+    targets, two backward launches a region a pair a step (a single run
+    with 2 regions and a 3-pair batch, 2 scales x 3 steps)."""
+    import strotss_torch
+    from strotss_torch import StrotssConfig
+    from strotss_torch.parallel import stylize_batch
+
+    content, style, _ = _small_images()
+    cfg = StrotssConfig(levels=2, max_iter=3)
+    cm = np.zeros((2, 48, 64, 1), np.float32)
+    cm[0, :24], cm[1, 24:] = 1.0, 1.0
+    sm = np.zeros((2, 64, 56, 1), np.float32)
+    sm[0, :, :28], sm[1, :, 28:] = 1.0, 1.0
+    before = (_count("gather_fwd"), _count("gather_bwd"))
+    strotss_torch.stylize(content, style, cfg,
+                          vgg_params=random_params("16", 0), device="cuda",
+                          content_masks=cm, style_masks=sm)
+    assert (_count("gather_fwd") - before[0],
+            _count("gather_bwd") - before[1]) == (2 * 6 + 2 * 2, 2 * 2 * 6)
+    rng = np.random.default_rng(1)
+    before = (_count("gather_fwd"), _count("gather_bwd"))
+    stylize_batch(rng.random((3, 48, 64, 3)).astype(np.float32),
+                  rng.random((3, 64, 56, 3)).astype(np.float32), cfg,
+                  vgg_params=random_params("16", 0), alphas=[0.5, 1.0, 4.0],
+                  pair_seeds=[1, 2, 3], device="cuda")
+    assert (_count("gather_fwd") - before[0],
+            _count("gather_bwd") - before[1]) == (3 * 6 + 3 * 2, 2 * 3 * 6)

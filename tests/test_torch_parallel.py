@@ -236,6 +236,50 @@ def test_sharded_remd_matches_jax_sharded_on_8(remd_runs, distance):
             _close_grad(dx, gx)
 
 
+def test_sharded_step_keeps_the_unsharded_remd_operand_order(monkeypatch):
+    """Under shard_samples the step hands the sharded REMD the operands of
+    the unsharded step's ``relaxed_emd``, in the same order (targets,
+    prediction): K1 then computes the unsharded K1's columns on each rank,
+    the same roundings, and a near-tie picks the same argmin."""
+    from strotss_torch import programs
+    from strotss_torch.ops import losses
+    from strotss_torch.parallel import transport
+
+    calls = {False: [], True: []}
+    plain = losses.relaxed_emd
+
+    def unsharded(x, y, distance="cosine", impl="auto"):
+        calls[False].append((x, y))
+        return plain(x, y, distance, impl)
+
+    def sharded(x, y, group, distance="cosine", impl="auto"):
+        calls[True].append((x, y))
+        return plain(x, y, distance, impl)
+
+    monkeypatch.setattr(losses, "relaxed_emd", unsharded)
+    monkeypatch.setattr(transport, "remd_over_group", sharded)
+    r = np.random.default_rng(7)
+    feats = [[torch.tensor(r.standard_normal((1,) + s), dtype=torch.float32)
+              for s in ((37, 53, 3), (37, 53, 8), (18, 26, 16))]
+             for _ in range(2)]
+    coords = torch.tensor(r.integers(0, (37, 53), (2, 48, 2)),
+                          dtype=torch.float32)
+    targets = torch.tensor(r.standard_normal((2, 48, 27)),
+                           dtype=torch.float32)
+    moments = [strotss_torch.ops.losses.moment_stats(t) for t in targets]
+    spec = programs.spec_from_config(strotss_torch.StrotssConfig(
+        sample_size=48, taps=("block1_conv1",)), "cpu")
+    for shard in (False, True):
+        programs.step_losses(spec._replace(shard_samples=shard), *feats,
+                             targets, moments, 16.0, coords)
+    assert len(calls[True]) == len(calls[False]) == 4  # 2 regions x 2 terms
+    for (x, y), (xu, yu) in zip(calls[True], calls[False]):
+        assert torch.equal(x, xu) and torch.equal(y, yu)
+    # the first operand is the targets' (cosine) and the second the
+    # prediction's, as in the unsharded step
+    assert torch.equal(calls[True][0][0], targets[0])
+
+
 # --- (3b) the sample-sharded Sinkhorn ---------------------------------------
 
 SINKHORN_DISTANCES = ("cosine", "both")
