@@ -5,16 +5,37 @@ the step layer's calls.
 The benchmark wraps the step layer (``programs.optimization_steps`` as
 ``solve`` calls it, ``programs.batch_steps`` as ``parallel.batch`` calls
 it) from its own files, and reads its arguments by name: ``n_steps``,
-``pyramid`` (the leaves updated in place) and ``opt`` (the RMSprop state,
-``lr`` and ``nu``). Around each call it reads the host's clock (the step
-never waits for the card, so this is the time to issue the steps). For
-the check it keeps the pyramid the scale starts from, the loss rows the
-call returns and the pyramid at the scale's end; and, from the
-optimizer's own updates, the RMSprop slots after the first and the
-pyramid after the first ``follow``. These are copies of small tensors
-(the pyramid of one 512 px image is 2.8 MB), made for every call so that
-every call costs the same. A call whose updates the benchmark cannot
-count (fewer ``opt.step`` calls than steps) raises :class:`CaptureError`
+``coords_fn``, ``pyramid`` (the leaves updated in place) and ``opt`` (the
+RMSprop state, ``lr`` and ``nu``). Around each call it reads the host's
+clock (the step never waits for the card, so this is the time to issue
+the steps).
+
+The check needs, of each scale, the pyramid it starts from, the loss rows,
+the RMSprop slots after the scale's first step, the pyramid after its
+``follow``-th step and the pyramid at its end. The wrapper reads them at
+the step layer's call boundaries: it splits each call of a scale at the
+scale's global steps 1 and ``follow``, where they fall inside the call
+(steps 1 to 10 as calls of 1, 2 and 7 steps; a scale's later calls, its
+``log_every`` chunks, continue the count), and copies ``opt.nu`` after the
+call that ends at step 1 and the pyramid after the one that ends at step
+``follow``. It passes every argument through by name and offsets only
+``n_steps`` and ``coords_fn`` (its last argument, the step: ``coords_fn(t)``
+of ``optimization_steps``, ``coords_fn(b, t)`` of ``batch_steps``), and
+returns the calls' rows concatenated. The copies (the pyramid of one
+512 px image is 2.8 MB) lie outside the timed intervals; every recorded
+call is split the same way, so every call costs the same.
+
+This holds the step layer to a contract, which a step captured as a CUDA
+graph has to keep as the eager step does:
+
+- it takes any ``n_steps >= 1`` with ``coords_fn`` offset by the steps
+  already run, and runs the same steps as one call would;
+- on return, the pyramid's leaves and ``opt.nu`` hold the state after the
+  last step, updated in place;
+- so a graph captures one step and is replayed ``n_steps`` times, never a
+  whole chunk.
+
+A scale whose calls do not show both states raises :class:`CaptureError`
 rather than hand the check a misaligned capture.
 """
 
@@ -37,6 +58,14 @@ class CaptureError(RuntimeError):
     """The step layer's calls did not show the states the check needs."""
 
 
+def _shifted(coords_fn, offset: int):
+    """``coords_fn`` with its last argument, the step, moved by
+    ``offset``."""
+    if not offset:
+        return coords_fn
+    return lambda *a: coords_fn(*a[:-1], a[-1] + offset)
+
+
 class Recorder:
     """The step layer's calls of the stylization in flight: one capture a
     scale (a scale's later calls, which share its optimizer, extend it)."""
@@ -46,6 +75,17 @@ class Recorder:
         self.scales: Optional[List[Dict]] = None
         self.host_s = 0.0
         self.steps = 0
+        # the step's memory, while watched: the most that one call
+        # allocated above what was allocated as it began, and the peaks
+        # that the readings reset
+        self.watch = False
+        self.transient: Optional[int] = None
+        self.peak_seen = 0
+
+    def watch_memory(self, on: bool) -> None:
+        """Read the device memory around each step call (outside the
+        timed interval) while ``on``."""
+        self.watch = on
 
     def begin(self) -> None:
         self.scales = []
@@ -56,53 +96,71 @@ class Recorder:
             cap.pop("opt", None)
         return scales
 
-    def _capture(self, n_steps: int, pyramid, opt) -> Dict:
-        """The scale's capture, the optimizer's ``step`` counted."""
+    def _capture(self, pyramid, opt) -> Dict:
+        """The scale's capture: the last one when ``opt`` is its
+        optimizer, else a new one."""
         last = self.scales[-1] if self.scales else None
         if last is not None and last["opt"] is opt:
-            cap = last
-        else:
-            cap = {"start": [p.detach().clone() for p in pyramid],
-                   "lr": opt.lr, "steps": 0, "updates": 0, "opt": opt,
-                   "rows": []}
-            self.scales.append(cap)
-        cap["steps"] += n_steps
-        step = opt.step
-
-        def counted(*a, **k):
-            out = step(*a, **k)
-            cap["updates"] += 1
-            if cap["updates"] == 1:
-                cap["nu1"] = [v.clone() for v in opt.nu]
-            if cap["updates"] == self.follow:
-                cap["after"] = [p.detach().clone() for p in pyramid]
-            return out
-
-        opt.step = counted
+            return last
+        cap = {"start": [p.detach().clone() for p in pyramid],
+               "lr": opt.lr, "steps": 0, "opt": opt, "rows": []}
+        self.scales.append(cap)
         return cap
+
+    def cuts(self, done: int, n: int) -> List[int]:
+        """The lengths of the calls that make up ``n`` steps of a scale
+        that has run ``done``: split where steps 1 and ``follow`` end."""
+        ends = sorted({e for e in (1, self.follow) if done < e < done + n})
+        out, at = [], done
+        for e in ends + [done + n]:
+            out.append(e - at)
+            at = e
+        return out
+
+    def _timed(self, fn, bound) -> torch.Tensor:
+        if self.watch:
+            self.peak_seen = max(self.peak_seen,
+                                 torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        rows = fn(*bound.args, **bound.kwargs)
+        self.host_s += time.perf_counter() - t0
+        if self.watch:
+            self.transient = max(self.transient or 0,
+                                 torch.cuda.max_memory_allocated() - base)
+        return rows
 
     def wrap(self, fn):
         rec = self
         sig = inspect.signature(fn)
 
         def steps(*args, **kw):
-            a = sig.bind(*args, **kw).arguments
-            pyramid, opt = a["pyramid"], a["opt"]
-            cap = None
-            if rec.scales is not None:
-                cap = rec._capture(int(a["n_steps"]), pyramid, opt)
-            t0 = time.perf_counter()
-            try:
-                rows = fn(*args, **kw)
-            finally:
-                if cap is not None:
-                    del opt.step  # the class's own again
-            rec.host_s += time.perf_counter() - t0
-            rec.steps += int(a["n_steps"])
-            if cap is not None:
-                cap["rows"].append(rows)
-                # the scale's last call leaves these as the scale ends
-                cap["final"] = [p.detach() for p in pyramid]
+            bound = sig.bind(*args, **kw)
+            a = bound.arguments
+            n = int(a["n_steps"])
+            if rec.scales is None or n < 1:
+                rows = rec._timed(fn, bound)
+                rec.steps += n
+                return rows
+            pyramid, opt, coords_fn = a["pyramid"], a["opt"], a["coords_fn"]
+            cap = rec._capture(pyramid, opt)
+            parts, offset = [], 0
+            for k in rec.cuts(cap["steps"], n):
+                a["n_steps"] = k
+                a["coords_fn"] = _shifted(coords_fn, offset)
+                parts.append(rec._timed(fn, bound))
+                offset += k
+                cap["steps"] += k
+                if cap["steps"] == 1:
+                    cap["nu1"] = [v.clone() for v in opt.nu]
+                if cap["steps"] == rec.follow:
+                    cap["after"] = [p.detach().clone() for p in pyramid]
+            rec.steps += n
+            rows = parts[0] if len(parts) == 1 else torch.cat(parts)
+            cap["rows"].append(rows)
+            # the scale's last call leaves these as the scale ends
+            cap["final"] = [p.detach() for p in pyramid]
             return rows
 
         return steps
@@ -122,20 +180,22 @@ def install(recorder: Recorder) -> None:
     batch.batch_steps = recorder.wrap(orig[1])
 
 
-def checked(scales: List[Dict], levels: int) -> List[Dict]:
-    """A finished call's captures: one a scale, each scale's updates
-    counted."""
+def checked(scales: List[Dict], levels: int, follow: int) -> List[Dict]:
+    """A finished call's captures: one a scale, each with the states the
+    check reads."""
     if len(scales) != levels:
         raise CaptureError(f"{len(scales)} scales seen in the step layer's "
                            f"calls; the entry ran {levels}")
     for cap in scales:
-        if cap["updates"] != cap["steps"]:
+        if cap["steps"] < follow:
+            # a scale of fewer than ``follow`` steps: its end
+            cap.setdefault("after", cap["final"])
+        missing = [k for k in ("nu1", "after") if k not in cap]
+        if missing:
             raise CaptureError(
-                f"the step layer reported {cap['steps']} steps of a scale "
-                f"and made {cap['updates']} optimizer updates; the check "
-                "needs the state after each update")
-        # a scale of fewer than ``follow`` steps: its end
-        cap.setdefault("after", cap["final"])
+                f"a scale of {cap['steps']} steps ended without {missing}; "
+                "the check needs the state after its first and its "
+                "follow-th step")
     return scales
 
 
@@ -177,4 +237,5 @@ class Program:
             torch.cuda.synchronize(self.device) if out.is_cuda else None
         finally:
             scales = self.rec.end()
-        return out, checked(scales, cfg.levels - cfg.start_level)
+        return out, checked(scales, cfg.levels - cfg.start_level,
+                            self.rec.follow)

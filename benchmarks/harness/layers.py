@@ -10,7 +10,12 @@ with ``read(ctx) -> float | None``, found by the metric's name.
 - ``wall_s``: the wall time of the same calls made without the profiler;
 - ``step_host_s``, ``steps``: the host's time inside the step layer's
   calls and the entry's steps, in the unprofiled calls;
-- ``rates``: the chip's peaks (:data:`harness.work.PEAKS`).
+- ``rates``: the chip's peaks (:data:`harness.work.PEAKS`);
+- ``spans``: the program's spans (``strotss_torch.utils.timing``) of a
+  second set of as many calls, unprofiled, under its tracing;
+- ``profile_spans``, ``launch_calls``: the spans of the profiled calls and
+  the runtime calls the profile recorded in them
+  (:func:`harness.spans.profile_events`).
 
 A reader that finds nothing to read returns None, and the metric is left
 out of the result line.

@@ -10,6 +10,9 @@ metrics (``benchmarks/metrics/``) to count operations and bytes from:
 - ``regions``: loss stacks a pair runs a step (1 without masks);
 - ``steps``: optimization steps; ``n``: samples (rows) of each loss;
   ``c``: hypercolumn channels (2179 for VGG16's 9 STROTSS taps);
+  ``taps``: the VGG taps, in the hypercolumn's order after the image;
+  ``dtype``: the compute dtype, in which blocks 2-5 keep their taps
+  (the image and block1's taps stay float32);
 - ``sinkhorn``: the transport term is Sinkhorn (else REMD);
   ``streamed``: above the memory gate, through K4 with the Danskin
   gradient; ``iters``: Sinkhorn iterations.
@@ -77,7 +80,8 @@ def call_shapes(cfg: Dict, traffic: Dict) -> List[Dict]:
             "chw": resize_max_hw(*traffic["content_hw"], size),
             "shw": resize_max_hw(*traffic["style_hw"], size),
             "pairs": pairs, "regions": regions, "steps": cfg["max_iter"],
-            "n": n, "c": c, "sinkhorn": sinkhorn,
+            "n": n, "c": c, "taps": list(taps),
+            "dtype": cfg["compute_dtype"], "sinkhorn": sinkhorn,
             "streamed": sinkhorn and not plain and n * n > GATE,
             "iters": int(cfg.get("sinkhorn_iters", 30)),
         })

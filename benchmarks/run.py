@@ -6,14 +6,19 @@
 Makes the VGG16 weights and the images (and masks) from ``--seed`` on the
 card, warms up the cell's shapes, then drives the entry in a closed loop:
 whole stylizations back to back, one call in flight, for ``--seconds``.
-``--trace 0`` reports the end-to-end metrics: ``image_s``, the window's
-seconds up to the end of the last stylization finished inside it over the
-stylizations (pairs) finished, and ``setup_s``. ``--trace 1`` times
-``trace_calls`` calls without the profiler and as many under it, and
-reports the cell's per-layer metrics (``benchmarks/metrics/``). Either
-way a sample of the finished calls, drawn from the seed, is then held to
-the plain reference (:mod:`harness.check`) and ``correct`` says whether
-every number stayed within its limit (``benchmarks/limits/<cell>.json``).
+``--trace 0`` reports the end-to-end metrics that the cell lists, of:
+``image_s``, the window's seconds up to the end of the last stylization
+finished inside it over the stylizations (pairs) finished; ``setup_s``;
+``memory_peak_gib``, the most device memory the window's calls allocated.
+``--trace 1`` times ``trace_calls`` calls without the profiler, then as
+many under the program's span tracing (``strotss_torch.utils.timing.
+tracing``, the step's memory read too), then as many under both the
+tracing and the profiler, and reports the cell's per-layer metrics
+(``benchmarks/metrics/``); the table of the spans by layer goes to
+stderr. Either way a sample of the finished calls, drawn from the seed,
+is then held to the plain reference (:mod:`harness.check`) and
+``correct`` says whether every number stayed within its limit
+(``benchmarks/limits/<cell>.json``).
 The last line on stdout is the result as JSON; the numbers compared and
 their limits are the last lines on stderr.
 """
@@ -93,6 +98,16 @@ class Sample:
                 self.kept[j] = item
 
 
+def peak_bytes(device, rec) -> int:
+    """The device memory the window's calls allocated at most (0 on the
+    CPU), the peaks that the step's memory readings reset included."""
+    import torch
+
+    if device.type != "cuda":
+        return 0
+    return max(torch.cuda.max_memory_allocated(device), rec.peak_seen)
+
+
 def setup(cell, seed: int, device):
     """(program, traffic, weights, recorder, seeds) of a run: the weights
     and the images from ``seed`` on ``device``, the step layer wrapped,
@@ -154,11 +169,18 @@ def run(args, cell, device) -> int:
             print("no stylization finished inside the window",
                   file=sys.stderr)
             return 3
-        result["metrics"] = {
-            "image_s": {"value": (t_last - t0) / finished, "unit": "s"},
-            "setup_s": {"value": setup_s, "unit": "s"}}
+        print(f"window: {finished} stylizations in {t_last - t0:.6f} s, "
+              f"{(t_last - t0) / finished:.6f} s each", file=sys.stderr)
+        values = {"image_s": (t_last - t0) / finished, "setup_s": setup_s,
+                  "memory_peak_gib": peak_bytes(device, rec) / 2 ** 30}
+        result["metrics"] = {m["name"]: {"value": values[m["name"]],
+                                         "unit": m["unit"]}
+                             for m in cell.end_to_end}
     else:
         from torch.profiler import ProfilerActivity, profile
+
+        from harness import spans
+        from strotss_torch.utils.timing import tracing
 
         k = int(cell.traffic.get("trace_calls", 1))
         host0, steps0 = rec.host_s, rec.steps
@@ -167,14 +189,23 @@ def run(args, cell, device) -> int:
             one()
         wall = time.perf_counter() - t0
         host, steps = rec.host_s - host0, rec.steps - steps0
+        # the program's spans: a set of its own, so that the set above
+        # times the calls with tracing off; the step's memory is read in
+        # it too
+        rec.watch_memory(device.type == "cuda")
+        with tracing() as traced_set:
+            for _ in range(k):
+                one()
+        rec.watch_memory(False)
         acts = [ProfilerActivity.CPU] + (
             [ProfilerActivity.CUDA] if device.type == "cuda" else [])
-        with profile(activities=acts) as prof:
+        with tracing() as profiled_set, profile(activities=acts) as prof:
             t1 = time.perf_counter()
             for _ in range(k):
                 one()
             window = time.perf_counter() - t1
-        attempted = finished = 2 * k * pairs
+        attempted = finished = 3 * k * pairs
+        launch_calls, kernel_events = spans.profile_events(prof)
         dev_spans, host_spans = trace.spans(prof)
         del prof
         busy, gaps = trace.timeline(dev_spans)
@@ -184,15 +215,24 @@ def run(args, cell, device) -> int:
         ctx = {"calls": [work.call_shapes(cell.config["strotss"],
                                           cell.traffic)] * k,
                "kernels": kernels, "busy_s": busy, "wall_s": wall,
-               "step_host_s": host, "steps": steps, "rates": rates}
+               "images": k * pairs, "step_host_s": host, "steps": steps,
+               "step_transient_b": rec.transient, "rates": rates,
+               "spans": traced_set.spans,
+               "profile_spans": profiled_set.spans,
+               "launch_calls": launch_calls}
         result["metrics"] = layers.read_all(cell.per_layer, ctx)
         result["breakdown"] = {
             "device_ops": [[n, s] for n, (s, _) in sorted(
                 kernels.items(), key=lambda kv: -kv[1][0])[:10]],
             "idle_gaps": trace.idle_by_host(gaps, host_spans)}
+        print("by span, per step of the entry (host self ms: the traced "
+              "set; the rest: the profiled set):", file=sys.stderr)
+        for row in spans.table(spans.by_span(
+                traced_set.spans, profiled_set.spans, launch_calls,
+                kernel_events, gaps)):
+            print("  " + row, file=sys.stderr)
         traced = {"busy_s": busy, "window_s": window}
-    peak = (torch.cuda.max_memory_allocated(device)
-            if device.type == "cuda" else 0)
+    peak = peak_bytes(device, rec)
     bad = forbidden_modules()
     if bad:
         print(f"loaded in the measuring process: {bad}", file=sys.stderr)

@@ -26,9 +26,12 @@ def test_every_cell_resolves():
         cell = resolve(w["name"])
         assert cell.config_name == w["config"]
         assert set(cell.limits) >= {"loss_gap", "image_gap"}
-        assert {m["name"] for m in cell.end_to_end} == {"image_s",
-                                                       "setup_s"}
-        assert all(m.get("moves") == "image_s" for m in cell.per_layer)
+        # set-up and one more end-to-end metric; each per-layer metric
+        # moves one that the cell reports
+        e2e = {m["name"] for m in cell.end_to_end}
+        assert "setup_s" in e2e and len(e2e) >= 2
+        assert cell.per_layer
+        assert all(m.get("moves") in e2e for m in cell.per_layer)
 
 
 def test_a_new_cell_config_and_metric_are_found_by_name(tmp_path):

@@ -64,7 +64,7 @@ def test_a_roofline_with_no_device_time_reads_nothing():
         tiny.resolve("strotss512.single").traffic)],
         "kernels": {}, "rates": work.PEAKS["SXM"]}
     for name in ("block1_roofline_pct", "remd_roofline_pct",
-                 "selfsim_roofline_pct"):
+                 "selfsim_roofline_pct", "gather_roofline_pct"):
         assert reader(name)(ctx) is None
 
 
@@ -79,3 +79,34 @@ def test_a_roofline_reads_its_kernels_and_checks_their_launches():
     assert v is not None and 0 < v < 100
     ctx["kernels"]["remd_reduce_kernel"] = (0.001, calls)
     assert reader("remd_roofline_pct")(ctx) is None
+
+
+def test_gather_bytes_match_the_kernel_table():
+    """PERF.md's kernel table bounds K5 at 0.0130 ms (forward) and 0.0477
+    ms (backward) by bytes: the 512 px scale's 10 maps on a 384x512 image,
+    n = 1024, VGG16's taps in the bf16 policy."""
+    k5 = _metric("gather_roofline_pct")
+    rates = work.PEAKS["SXM"]
+    taps = list(work.TAP_CHANNELS)
+    args = (384, 512, 1024, taps, "bfloat16", rates)
+    assert abs(k5.paired_fwd(*args) * 1e3 - 0.0130) < 0.0005
+    assert abs(k5.bwd(*args) * 1e3 - 0.0477) < 0.0005
+    # float32 taps hold twice the bytes of blocks 2-5
+    assert k5.bwd(384, 512, 1024, taps, "float32", rates) > k5.bwd(*args)
+
+
+def test_a_gather_roofline_checks_its_launches():
+    cell = tiny.resolve("strotss512.masked2")
+    shapes = work.call_shapes(cell.config["strotss"], cell.traffic)
+    k = sum(s["pairs"] * s["regions"] for s in shapes)
+    steps = sum(s["steps"] * s["pairs"] * s["regions"] for s in shapes)
+    ctx = {"calls": [shapes], "rates": work.PEAKS["SXM"],
+           "kernels": {"gather_fwd_kernel(Table)": (0.01, steps + k),
+                       "gather_sort_kernel(Table)": (0.002, steps),
+                       "gather_acc_kernel(Table)": (0.02, steps)}}
+    v = reader("gather_roofline_pct")(ctx)
+    assert v is not None and 0 < v < 100
+    # a style forward a region a scale missing: the shapes are not the
+    # profile's, so the share reads nothing
+    ctx["kernels"]["gather_fwd_kernel(Table)"] = (0.01, steps)
+    assert reader("gather_roofline_pct")(ctx) is None

@@ -17,8 +17,10 @@ import run  # noqa: E402
 from harness.cells import resolve  # noqa: E402
 
 
-def cell(pairs=1, regions=0, dtype="float32", levels=2, max_iter=3):
-    base = resolve("strotss512.single")
+def cell(pairs=1, regions=0, dtype="float32", levels=2, max_iter=3,
+         workload="strotss512.single"):
+    """``workload``'s cell (its metrics and limits) at a CPU's size."""
+    base = resolve(workload)
     cfg = dict(base.config)
     cfg["strotss"] = dict(cfg["strotss"], levels=levels, max_iter=max_iter,
                           sample_size=64, compute_dtype=dtype)
