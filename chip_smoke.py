@@ -20,7 +20,12 @@ within one unit in the last place of float64), runs a short slice of the
 64 px scale with the kernels and with the plain versions, and then drives
 the default stylization (VGG16, 9 taps, 1024 samples, 4 scales to 512 px)
 through ``strotss_torch.stylize``, counting each kernel's launches (K5's
-too). It drives the same run with two region masks (BASELINE config 3, masks loaded from PNGs
+too): on the step's CUDA-graph route a replayed step launches nothing
+through the kernels' wrappers, so the counts take the captured steps from
+the graph counters. The graph phase holds the replayed step to the eager
+step at the 256 px scale from one state: bit for bit (loss rows, pyramid,
+RMSprop slots, generator) under PyTorch's deterministic algorithms, and
+under the default switches within the gap two eager runs show. It drives the same run with two region masks (BASELINE config 3, masks loaded from PNGs
 by ``strotss_torch.ops.masks.load_mask``), after holding one masked step's
 kernel losses to the plain ones. The batch phase runs 8 pairs at full
 width through ``strotss_torch.parallel.stylize_batch`` (BASELINE config
@@ -1397,6 +1402,38 @@ def _launches(since=None):
             for k in KERNELS}
 
 
+def _graph_counts(since=None):
+    """The steps replayed from a CUDA graph and the graphs captured so
+    far (``strotss_torch.graphs``' counters), less those of ``since``."""
+    from strotss_torch.utils import timing
+
+    now = timing.counters()
+    return {k: now.get("graph." + k, 0) - (since or {}).get(k, 0)
+            for k in ("replay", "capture")}
+
+
+def _memory(summary: dict) -> dict:
+    """``summary`` with the device memory the run reserved at most and what
+    the CUDA graphs' pools hold at its end (segments of a private pool),
+    in GiB."""
+    import torch
+
+    pools = sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+                if tuple(s.get("segment_pool_id", (0, 0))) != (0, 0))
+    return dict(summary,
+                reserved_peak_gib=torch.cuda.max_memory_reserved() / 2 ** 30,
+                graph_pool_gib=pools / 2 ** 30)
+
+
+def _issued(steps: int, summary: dict) -> int:
+    """Of a run's ``steps`` steps, those whose launches the wrappers
+    count: a step replayed from a CUDA graph launches nothing through
+    them, a captured one once (``summary["graph"]``, as the run's counted
+    summary holds it)."""
+    g = summary["graph"]
+    return steps - g["replay"] + g["capture"]
+
+
 def _unlaunch(saved):
     """Set the launch counters back to ``saved`` (an earlier reading), so
     that a check's own launches do not count."""
@@ -1417,7 +1454,7 @@ def _run_counted(content, style, cfg, **kw):
 
     import strotss_torch
 
-    before = _launches()
+    before, graph = _launches(), _graph_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     img, info = strotss_torch.stylize(content, style, cfg, **kw)
@@ -1433,9 +1470,9 @@ def _run_counted(content, style, cfg, **kw):
                            "first_loss": float(s["curve"][0, 0]),
                            "last_loss": float(s["curve"][-1, 0])}
                           for s in info["scales"]],
-               "launches": launches,
+               "launches": launches, "graph": _graph_counts(graph),
                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
-    return img, info, launches, summary
+    return img, info, launches, _memory(summary)
 
 
 def _check_curves(name, info, falls):
@@ -1465,14 +1502,157 @@ def phase_main():
     check(img.dtype == torch.uint8 and tuple(img.shape) == (384, 512, 3),
           f"main: output {img.dtype} {tuple(img.shape)}, want uint8 "
           "(384, 512, 3)")
+    # each scale's first step runs eagerly and its second is captured as a
+    # CUDA graph, which every later step replays
+    check(summary["graph"] == {"capture": cfg.levels,
+                               "replay": steps - cfg.levels},
+          f"main: graph {summary['graph']}, want {cfg.levels} captures "
+          f"and {steps - cfg.levels} replays")
+    n = _issued(steps, summary)
     # block1's forward also runs once for the content and once for the
     # style at each scale
-    want = {"remd_mins": 2 * steps, "selfsim_fwd": steps,
-            "selfsim_bwd": steps, "block1_fwd": steps + 2 * cfg.levels,
-            "block1_bwd": steps, "sinkhorn_lse": 0, "sinkhorn_prep": 0,
-            **_k5_want(steps, cfg.levels)}
+    want = {"remd_mins": 2 * n, "selfsim_fwd": n, "selfsim_bwd": n,
+            "block1_fwd": n + 2 * cfg.levels, "block1_bwd": n,
+            "sinkhorn_lse": 0, "sinkhorn_prep": 0,
+            **_k5_want(n, cfg.levels)}
     check(launches == want, f"main: launches {launches}, want {want}")
     return launches, info
+
+
+#: the largest relative gap allowed between a graph's and an eager side's
+#: loss rows, free-running from one state over the benchmark's 1 + 2 + 7
+#: split under the default switches: twice the widest gap between two
+#: eager sides on an H100 over 4 seeds, 2.71e-2 (PERF.md); the card tests
+#: hold the same limit (tests/test_torch_graph.py)
+GRAPH_DRIFT_RTOL = 5.5e-2
+
+
+def phase_graph(vgg_params):
+    """The step as a replayed CUDA graph against the eager step, at the
+    256 px scale of the default run (``strotss_torch.graphs``):
+
+    - 10 steps in calls of one, the eager side set to the graph's state
+      before each: each step's coordinates bit for bit (read from the
+      buffer the graph draws into) and its losses to rtol 1e-3;
+    - under PyTorch's deterministic algorithms, from one state and never
+      reset, calls of 1, 1, 2 and 7 steps (the key's eager step, its
+      capture, then replays handed back): the loss rows, the pyramid, the
+      RMSprop slots and the generator bit for bit after each call;
+    - under the default switches, over the benchmark's calls of 1, 2 and
+      7 steps from one state and never reset, for 4 generator seeds: the
+      gap between the graph's rows and an eager side's beside the gap
+      between two eager sides, the former within ``GRAPH_DRIFT_RTOL``."""
+    import torch
+
+    import strotss_torch
+    from strotss_torch import graphs, programs, solve
+    from strotss_torch.models.vgg import VGG
+    from strotss_torch.ops import sampling
+    from strotss_torch.ops.losses import moment_stats
+
+    cfg = strotss_torch.StrotssConfig()
+    spec = programs.spec_from_config(cfg, "cuda")
+    c = torch.tensor(_smooth_image(480, 640, 31), device="cuda")
+    s = torch.tensor(_smooth_image(720, 560, 32), device="cuda")
+    mode, chw, shw = solve.scale_mode_shapes(cfg, c.shape, s.shape, 2, 256)
+    vgg = VGG({k: {n: t.cuda() for n, t in p.items()}
+               for k, p in vgg_params.items()}, taps=spec.taps,
+              compute_dtype=spec.compute_dtype, block1_impl=spec.block1_impl)
+    n = cfg.sample_size
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    with programs.precision(spec), torch.no_grad():
+        scl_c, scl_s, pyramid = programs.scale_seed(
+            "mid", chw, shw, cfg.pyramid_levels, c, s, c)
+        feats = programs.extract_hypercolumn(vgg, scl_c)
+        targets = sampling.sample_style(
+            sampling.full_grid_coords(gen, shw, n, "cuda"),
+            programs.extract_hypercolumn(vgg, scl_s), spec.sample_impl)[None]
+        moments = [moment_stats(targets[0])]
+
+    def side(seed):
+        pyr = [p.detach().clone().contiguous() for p in pyramid]
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        return {"pyramid": pyr, "opt": programs.RMSprop(pyr, cfg.lr),
+                "gen": g, "drawn": []}
+
+    def steps(sd, k, route, det=False):
+        def coords(t):
+            xy = sampling.strided_grid_coords(sd["gen"], chw, n, "cuda")
+            sd["drawn"].append(xy[None])
+            return xy[None]
+        with programs.precision(spec, deterministic=det):
+            return programs.optimization_steps(
+                spec._replace(step_impl=route), k, vgg, feats, targets,
+                moments, cfg.initial_alpha() / 4, sd["pyramid"], sd["opt"],
+                coords, step_gens=[sd["gen"]])
+
+    def same_state(dst, src):
+        with torch.no_grad():
+            for a, b in zip(dst["pyramid"] + dst["opt"].nu,
+                            src["pyramid"] + src["opt"].nu):
+                a.copy_(b)
+        dst["gen"].set_state(src["gen"].get_state())
+
+    def rel(got, want):
+        return float(((got - want).abs() / want.abs()).max())
+
+    graphs.clear()
+    before = _graph_counts()
+    graph, eager = side(5), side(5)
+    loss_err, coords_equal = [], []
+    for _ in range(10):
+        same_state(eager, graph)
+        got, want = steps(graph, 1, "auto"), steps(eager, 1, "eager")
+        loss_err.append(rel(got, want))
+        coords_equal.append(bool(torch.equal(graph["drawn"][-1],
+                                             eager["drawn"][-1])))
+    # deterministic algorithms: another key, captured anew
+    graph, eager = side(5), side(5)
+    bitwise = []
+    for k in (1, 1, 2, 7):
+        got = steps(graph, k, "auto", det=True)
+        want = steps(eager, k, "eager", det=True)
+        bitwise.append({
+            "steps": k, "rows": bool(torch.equal(got, want)),
+            "state": all(bool(torch.equal(a, b)) for a, b in zip(
+                graph["pyramid"] + graph["opt"].nu,
+                eager["pyramid"] + eager["opt"].nu)),
+            "generator": bool(torch.equal(graph["gen"].get_state(),
+                                          eager["gen"].get_state()))})
+    # the default switches, free-running over the benchmark's split: the
+    # first key's graph against an eager side, two eager sides apart
+    drift = []
+    for seed in (11, 12, 13, 14):
+        graph, eager, eager2 = side(seed), side(seed), side(seed)
+        rows = {"graph": [], "eager": [], "eager2": []}
+        for k in (1, 2, 7):
+            rows["graph"].append(steps(graph, k, "auto"))
+            rows["eager"].append(steps(eager, k, "eager"))
+            rows["eager2"].append(steps(eager2, k, "eager"))
+        got, want, other = (torch.cat(rows[w]) for w in
+                            ("graph", "eager", "eager2"))
+        drift.append({
+            "seed": seed,
+            "graph_vs_eager": [rel(a, b) for a, b in zip(got, want)],
+            "eager_vs_eager": [rel(a, b) for a, b in zip(other, want)],
+            "finite": bool(torch.isfinite(got).all())})
+    counts = _graph_counts(before)
+    emit({"phase": "graph", "scale": 256,
+          "loss_rel_err": loss_err, "coords_bitwise": coords_equal,
+          "deterministic_bitwise": bitwise, "drift": drift,
+          "graph": counts})
+    check(all(coords_equal), "graph: a step's coordinates differ")
+    check(max(loss_err) <= 1e-3, f"graph: losses {max(loss_err)} > 1e-3")
+    check(all(all(v for k, v in b.items() if k != "steps")
+              for b in bitwise),
+          f"graph: deterministic graph and eager steps differ: {bitwise}")
+    worst = max(max(d["graph_vs_eager"]) for d in drift)
+    check(all(d["finite"] for d in drift) and worst <= GRAPH_DRIFT_RTOL,
+          f"graph: split drift {worst} > {GRAPH_DRIFT_RTOL}")
+    # 1 capture and 9 replays, 1 and 10 under the deterministic
+    # algorithms, 4 x 10 replays of the first key
+    check(counts == {"capture": 2, "replay": 9 + 10 + 40},
+          f"graph: counts {counts}, want 2 captures and 59 replays")
 
 
 def phase_sinkhorn(cosine_pass_ms):
@@ -1711,7 +1891,7 @@ def _run_batch_counted(contents, styles, cfg, **kw):
 
     from strotss_torch.parallel import stylize_batch
 
-    before = _launches()
+    before, graph = _launches(), _graph_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     imgs, info = stylize_batch(contents, styles, cfg, device="cuda", **kw)
@@ -1726,9 +1906,9 @@ def _run_batch_counted(contents, styles, cfg, **kw):
                            "first_loss": sc["curve"][0, :, 0].tolist(),
                            "last_loss": sc["curve"][-1, :, 0].tolist()}
                           for sc in info["scales"]],
-               "launches": launches,
+               "launches": launches, "graph": _graph_counts(graph),
                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
-    return imgs, info, launches, summary
+    return imgs, info, launches, _memory(summary)
 
 
 def _check_batch_curves(name, info, falls):
@@ -1855,10 +2035,14 @@ def phase_batch(main_info):
           f"batch: output {imgs.dtype} {tuple(imgs.shape)}")
     check(info["scales"][0]["alpha"] == [16.0 * a for a in alphas],
           f"batch: alphas {info['scales'][0]['alpha']}")
-    want = {"remd_mins": 2 * b * steps, "selfsim_fwd": b * steps,
-            "selfsim_bwd": b * steps, "block1_fwd": steps + 2 * cfg.levels,
-            "block1_bwd": steps, "sinkhorn_lse": 0, "sinkhorn_prep": 0,
-            **_k5_want(b * steps, b * cfg.levels)}
+    check(summary["graph"]["replay"] >= steps - cfg.levels,
+          f"batch: graph {summary['graph']}, want every step but the "
+          "first of a scale replayed")
+    n = _issued(steps, summary)
+    want = {"remd_mins": 2 * b * n, "selfsim_fwd": b * n,
+            "selfsim_bwd": b * n, "block1_fwd": n + 2 * cfg.levels,
+            "block1_bwd": n, "sinkhorn_lse": 0, "sinkhorn_prep": 0,
+            **_k5_want(b * n, b * cfg.levels)}
     check(launches == want, f"batch: launches {launches}, want {want}")
     del imgs, info
     torch.cuda.empty_cache()
@@ -2303,11 +2487,17 @@ def phase_features(main_info, max_iter=200):
             emit({"phase": "features", "run": "refine", "remat": remat,
                   "start_level": 3, "alpha": info_f["scales"][0]["alpha"],
                   "main_alpha": main_alpha, **summary_f})
-            want = {"remd_mins": 2 * max_iter, "selfsim_fwd": max_iter,
-                    "selfsim_bwd": max_iter,
-                    "block1_fwd": (2 if remat else 1) * max_iter + 2,
-                    "block1_bwd": max_iter, "sinkhorn_lse": 0,
-                    "sinkhorn_prep": 0, **_k5_want(max_iter, 1)}
+            # without remat the scale's first step runs eagerly and its
+            # second is captured, unless a graph of its shape is kept
+            n = _issued(max_iter, summary_f)
+            check(n == max_iter if remat else n <= 2,
+                  f"features: refine (remat {remat}) graph "
+                  f"{summary_f['graph']}")
+            want = {"remd_mins": 2 * n, "selfsim_fwd": n,
+                    "selfsim_bwd": n,
+                    "block1_fwd": (2 if remat else 1) * n + 2,
+                    "block1_bwd": n, "sinkhorn_lse": 0,
+                    "sinkhorn_prep": 0, **_k5_want(n, 1)}
             check(launches_f == want, f"features: refine (remat {remat}) "
                   f"launches {launches_f}, want {want}")
             check([s["scale"] for s in info_f["scales"]] == [512]
@@ -2564,8 +2754,8 @@ def _rank_shard_samples(content, style, cfg):
         held.append((torch.stack(out).detach(), torch.stack(ref)))
         return out
 
-    def steps_then_digest(*a):
-        rows = optimization_steps(*a)
+    def steps_then_digest(*a, **kw):
+        rows = optimization_steps(*a, **kw)
         digests.append(hashlib.sha256(b"".join(
             t.detach().cpu().numpy().tobytes() for t in a[7])).hexdigest())
         return rows
@@ -2724,7 +2914,8 @@ def _rank_spatial(content, style, steps, **cfg_kw):
                 torch.cat([t.reshape(-1) for t in g]))
 
     def held_steps(spec, n, vgg, content_feats, targets, moments, alpha,
-                   pyramid, opt, coords_fn, group=None, spatial=None):
+                   pyramid, opt, coords_fn, group=None, spatial=None,
+                   step_gens=None):
         saved = _launches()
         whole = programs.extract_hypercolumn(vgg, content_feats.image)
         rows = []
@@ -3329,6 +3520,7 @@ def main() -> int:
         vgg_params = random_params("16", seed=0)
         phase_slice(vgg_params)
         launches, main_info = phase_main()
+        phase_graph(vgg_params)
         masked = phase_masked(vgg_params)
         batched = phase_batch(main_info)
         phase_serve()

@@ -29,6 +29,7 @@ from typing import Dict, List, Sequence
 import torch
 import torch.nn.functional as F
 
+from strotss_torch.ops.image import device_constant
 from strotss_torch.ops.kernels import block1 as _block1
 
 STROTSS_DEFAULT_TAPS = (
@@ -78,13 +79,12 @@ def hypercolumn_channels(taps: Sequence[str] = STROTSS_DEFAULT_TAPS,
 def preprocess(x: torch.Tensor, mode: str = "norm") -> torch.Tensor:
     """Input normalization of an NHWC RGB image in [0, 1]."""
     if mode == "norm":
-        mean = torch.tensor(_IMAGENET_MEAN, dtype=x.dtype, device=x.device)
-        std = torch.tensor(_IMAGENET_STD, dtype=x.dtype, device=x.device)
+        mean = device_constant(_IMAGENET_MEAN, x.dtype, x.device)
+        std = device_constant(_IMAGENET_STD, x.dtype, x.device)
         return (x - mean) / std
     if mode == "keras":
         bgr = torch.flip(x * 255.0, dims=(-1,))
-        return bgr - torch.tensor(_CAFFE_BGR_MEAN, dtype=x.dtype,
-                                  device=x.device)
+        return bgr - device_constant(_CAFFE_BGR_MEAN, x.dtype, x.device)
     raise ValueError(f"Unknown preprocess mode: {mode}")
 
 

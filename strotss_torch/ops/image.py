@@ -15,11 +15,28 @@ import torch
 import torch.nn.functional as F
 
 # tf.image.rgb_to_yuv kernel (BT.601), the exact constants TF uses.
-_RGB_TO_YUV = [
-    [0.299, -0.14714119, 0.61497538],
-    [0.587, -0.28886916, -0.51496512],
-    [0.114, 0.43601035, -0.10001026],
-]
+_RGB_TO_YUV = (
+    (0.299, -0.14714119, 0.61497538),
+    (0.587, -0.28886916, -0.51496512),
+    (0.114, 0.43601035, -0.10001026),
+)
+
+
+#: (values, dtype, device) -> the constant on that device
+_constants: dict = {}
+
+
+def device_constant(values, dtype, device) -> torch.Tensor:
+    """``torch.tensor(values, dtype=dtype, device=device)``, made once a
+    (values, dtype, device) and then shared, never written: a step takes
+    its constants without a copy from the host, which a captured CUDA
+    graph could not make. ``values``: nested tuples of numbers."""
+    key = (values, dtype, torch.device(device))
+    t = _constants.get(key)
+    if t is None:
+        t = _constants[key] = torch.tensor(values, dtype=dtype,
+                                           device=device)
+    return t
 
 
 def _hw(x: torch.Tensor) -> Tuple[int, int]:
@@ -100,7 +117,7 @@ def fold_laplacian_pyramid(bands: Sequence[torch.Tensor]) -> torch.Tensor:
 
 def rgb_to_yuv(x: torch.Tensor) -> torch.Tensor:
     """RGB->YUV of the first 3 entries of the last axis (BT.601, TF's kernel)."""
-    k = torch.tensor(_RGB_TO_YUV, dtype=x.dtype, device=x.device)
+    k = device_constant(_RGB_TO_YUV, x.dtype, x.device)
     return torch.matmul(x[..., :3], k)
 
 

@@ -51,6 +51,7 @@ from torch.nn.grad import conv2d_input
 from strotss_torch.ops.kernels import build
 from strotss_torch.ops.kernels.common import (
     check_cuda_f32,
+    graph_store,
     launch_on,
     resolve_impl,
 )
@@ -154,6 +155,10 @@ def _cached(name, build_layouts, *src):
     serves only the same tensors at the same ``_version``, so an in-place
     edit of a weight rebuilds its layouts.
     """
+    if graph_store() is not None:
+        # a captured graph reads weights whose values a later call may
+        # replace in place: it derives the layouts itself on each replay
+        return build_layouts(*src)
     key = (name, *map(id, src))
     stamp = tuple((t.device, t._version) for t in src)
     hit = _layouts.get(key)

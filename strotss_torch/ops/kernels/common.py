@@ -8,7 +8,9 @@ and its plain version cannot drift apart. The same floors are written into
 
 from __future__ import annotations
 
+import contextlib
 from collections import OrderedDict
+from typing import Optional
 
 import torch
 
@@ -82,6 +84,31 @@ def launch_on(device: torch.device, *args) -> None:
 
 _SCRATCH_KEPT = 8  # scratch buffers kept, the least recently used dropped
 _scratch: "OrderedDict[tuple, tuple]" = OrderedDict()
+#: the store of the CUDA graph being captured (:func:`capturing_into`)
+_graph_store: Optional[dict] = None
+
+
+@contextlib.contextmanager
+def capturing_into(store: dict):
+    """For the body of the ``with``, in which a CUDA graph is captured:
+    the kernels' wrappers keep nothing of theirs in their caches for later
+    calls. Each scratch :func:`stream_scratch` hands out is made in the
+    capture and kept in ``store``, which the graph's owner holds as long
+    as the graph, so no later call evicts or reuses a buffer the graph
+    writes; caches of values derived from other tensors (block1's weight
+    layouts) are bypassed, so the graph derives them itself from what it
+    reads on each replay."""
+    global _graph_store
+    outer, _graph_store = _graph_store, store
+    try:
+        yield store
+    finally:
+        _graph_store = outer
+
+
+def graph_store() -> Optional[dict]:
+    """The store of the CUDA graph being captured, or None."""
+    return _graph_store
 
 
 def stream_scratch(key: tuple, stream: int, numel: int, dtype,
@@ -89,7 +116,14 @@ def stream_scratch(key: tuple, stream: int, numel: int, dtype,
     """A kernel's scratch of ``numel`` elements, one buffer per ``key``
     (which names the kernel, device and shape), made anew when ``stream``
     is another than the one it was made on: the kernels of one stream run
-    in order, so only that stream may reuse it."""
+    in order, so only that stream may reuse it. While a CUDA graph is
+    captured, the buffer is the graph's own (:func:`capturing_into`)."""
+    if _graph_store is not None:
+        key = ("scratch",) + key
+        if key not in _graph_store:
+            _graph_store[key] = torch.empty(numel, dtype=dtype,
+                                            device=device)
+        return _graph_store[key]
     hit = _scratch.get(key)
     if hit is None or hit[0] != stream:
         hit = (stream, torch.empty(numel, dtype=dtype, device=device))

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from strotss_torch import graphs
 from strotss_torch.api import _to_device, resolve_device
 from strotss_torch.config import StrotssConfig
 from strotss_torch.models.vgg import VGG
@@ -152,12 +153,14 @@ def prepare_scale_batch(spec: StepSpec, mode: str, chw, shw, levels: int,
 
 def run_chunk_batch(spec: StepSpec, n_steps: int, vgg: VGG, content_feats,
                     pairs, pyramid, opt: RMSprop, coords_fn, images=False,
-                    sample_group=None):
+                    sample_group=None, step_gens=None):
     """``n_steps`` (>= 1) batched steps (``batch.py:148-238``): the
     (n_steps, B, 3) loss rows on the device and, with ``images``, the
-    chunk's float and uint8 images (:func:`_images`), else None."""
+    chunk's float and uint8 images (:func:`_images`), else None.
+    ``step_gens``: as :func:`strotss_torch.programs.batch_steps` takes
+    them."""
     rows = batch_steps(spec, n_steps, vgg, content_feats, pairs, pyramid,
-                       opt, coords_fn, sample_group)
+                       opt, coords_fn, sample_group, step_gens)
     return rows, (_images(pyramid) if images else None)
 
 
@@ -451,7 +454,9 @@ def stylize_batch(
                     rows, images = run_chunk_batch(
                         spec, steps, vgg, content_feats, pairs, pyramid, opt,
                         lambda b, t, d=done: coords_fn(b, d + t),
-                        images=bool(cfg.checkpoint_dir), sample_group=group)
+                        images=bool(cfg.checkpoint_dir), sample_group=group,
+                        step_gens=(step_gens if coords_source is None
+                                   and mesh is None else None))
                     curve.append(rows)
                     if cfg.checkpoint_dir:
                         state = _state(pyramid, opt, step_gens)
@@ -518,6 +523,8 @@ def stylize_batch(
                 entry.update(loss=float(last[0]), loss_c=float(last[1]),
                              loss_s=float(last[2]))
         info["seconds"] = time.perf_counter() - t_total
+    # the step graphs of this call's scale shapes stay for the next call
+    graphs.end_call()
     info["stylized"] = stylized
     return final_u8, info
 

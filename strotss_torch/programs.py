@@ -39,6 +39,7 @@ import numpy as np
 import torch
 import torch.utils.checkpoint
 
+from strotss_torch import graphs
 from strotss_torch.config import StrotssConfig
 from strotss_torch.models.vgg import STROTSS_DEFAULT_TAPS, VGG
 from strotss_torch.ops.image import (
@@ -71,6 +72,9 @@ class StepSpec(NamedTuple):
     :func:`optimization_steps` as an argument. ``sample_impl`` is the
     hypercolumn gathers' route (:mod:`strotss_torch.ops.sampling`):
     ``'auto'`` (kernel K5 on a CUDA device), ``'plain'`` or ``'kernel'``.
+    ``step_impl`` is the step's route (:func:`step_route`): ``'auto'``
+    (a replayed CUDA graph where the call allows one,
+    :mod:`strotss_torch.graphs`) or ``'eager'``.
     """
 
     sample_size: int
@@ -88,6 +92,7 @@ class StepSpec(NamedTuple):
     shard_samples: bool = False
     shard_spatial: bool = False
     sample_impl: str = "plain"
+    step_impl: str = "eager"
 
 
 def _block1_route(cfg: StrotssConfig, device) -> str:
@@ -125,8 +130,15 @@ def spec_from_config(cfg: StrotssConfig, device="cpu",
     runs no REMD, so ``remd_impl`` carries that route; self-similarity,
     and REMD on such a run without Sinkhorn, keep their kernels, since any
     route computes the same function.
+
+    ``step_impl`` is ``'auto'`` on the kernels' route of a run without
+    masks, Sinkhorn, sharding, ``remat`` or checkpoints (which a run may
+    resume from), and ``'eager'`` on every other.
     """
     impl = "auto" if cfg.use_pallas else "plain"
+    graphable = cfg.use_pallas and not (
+        masked or cfg.use_sinkhorn or cfg.shard_samples or cfg.shard_spatial
+        or cfg.remat or cfg.checkpoint_dir)
     return StepSpec(
         sample_size=cfg.sample_size,
         vgg_type=cfg.vgg_type,
@@ -145,7 +157,27 @@ def spec_from_config(cfg: StrotssConfig, device="cpu",
         shard_samples=cfg.shard_samples,
         shard_spatial=cfg.shard_spatial,
         sample_impl=impl,
+        step_impl="auto" if graphable else "eager",
     )
+
+
+def step_route(spec: StepSpec, device, step_gens, sample_group=None,
+               spatial=None) -> str:
+    """The step's route, ``'graph'`` (a replayed CUDA graph,
+    :mod:`strotss_torch.graphs`) or ``'eager'``: the graph where the
+    spec allows one (``step_impl`` ``'auto'``, which
+    :func:`spec_from_config` sets on the runs whose step a graph can hold)
+    and the call is on a CUDA ``device``, names the generators its
+    coordinates come from (``step_gens``; a caller names them only where
+    the coordinates are their draws alone, on one device) and has no
+    process group and no spatial split."""
+    if spec.step_impl not in ("auto", "eager"):
+        raise ValueError("step_impl must be 'auto' or 'eager', got "
+                         f"{spec.step_impl!r}")
+    ok = (spec.step_impl == "auto" and torch.device(device).type == "cuda"
+          and step_gens is not None and sample_group is None
+          and spatial is None)
+    return "graph" if ok else "eager"
 
 
 def set_precision(spec: StepSpec) -> None:
@@ -395,10 +427,37 @@ def step_losses(spec: StepSpec, content_feats, pred, style_targets,
     return (alpha * lc + ls) / denom, lc, ls
 
 
+def _step(spec: StepSpec, vgg: VGG, content_feats, style_targets,
+          style_moments, alpha: float, pyramid, opt: RMSprop, draw,
+          sample_group=None, spatial=None) -> torch.Tensor:
+    """One step of :func:`optimization_steps` at the coordinates ``draw()``
+    returns; its (loss, loss_c, loss_s) row."""
+    leaves = [p.requires_grad_(True) for p in pyramid]
+    with span("step.fold"):
+        img = fold_laplacian_pyramid(leaves)
+    with span("step.vgg"):
+        pred = extract_for_grad(spec, vgg, img, spatial)
+    with span("step.losses"):
+        # the draw is the sampling layer's: its own generator, so its
+        # place in the step changes no value
+        coords = draw()
+        loss, lc, ls = step_losses(spec, content_feats, pred, style_targets,
+                                   style_moments, alpha, coords,
+                                   sample_group=sample_group)
+    # under remat nothing else holds the taps: the backward recomputes
+    # them instead of keeping these alive beside the recomputed ones
+    del pred
+    with span("step.backward"):
+        grads = torch.autograd.grad(loss, leaves)
+    with span("step.update"):
+        opt.step(grads)
+    return torch.stack([loss, lc, ls]).detach()
+
+
 def optimization_steps(spec: StepSpec, n_steps: int, vgg: VGG, content_feats,
                        style_targets, style_moments, alpha: float, pyramid,
                        opt: RMSprop, coords_fn: Callable[[int], torch.Tensor],
-                       sample_group=None, spatial=None):
+                       sample_group=None, spatial=None, step_gens=None):
     """``n_steps`` (>= 1) of sample -> VGG -> losses -> grad -> RMSprop.
 
     ``pyramid`` (a list of leaf tensors) is updated in place; the per-step
@@ -411,32 +470,29 @@ def optimization_steps(spec: StepSpec, n_steps: int, vgg: VGG, content_feats,
     content features are split by height too, VGG runs on this rank's rows
     of the image, and the gradient of the VGG path is summed over the
     'spatial' group into the image's, the same on every rank.
+
+    ``step_gens``: the generators ``coords_fn`` draws from, given only
+    where its coordinates are one draw a step from them in step order and
+    depend on nothing else (no ``coords_source``, no masks). The steps
+    may then run as replays of one captured CUDA graph
+    (:func:`step_route`, :mod:`strotss_torch.graphs`), which leave the
+    pyramid, ``opt.nu`` and the generators as the eager steps would.
     """
+    if step_route(spec, pyramid[0].device, step_gens, sample_group,
+                  spatial) == "graph":
+        def step(t, vgg, inputs, pyramid, opt):
+            return _step(spec, vgg, *inputs, alpha, pyramid, opt,
+                         lambda: coords_fn(t))
+
+        return graphs.replayed(("single", spec, alpha), n_steps, step, vgg,
+                               [content_feats, style_targets, style_moments],
+                               pyramid, opt, step_gens)
     rows = []
     for t in range(n_steps):
         with span("step"):
-            leaves = [p.requires_grad_(True) for p in pyramid]
-            with span("step.fold"):
-                img = fold_laplacian_pyramid(leaves)
-            with span("step.vgg"):
-                pred = extract_for_grad(spec, vgg, img, spatial)
-            with span("step.losses"):
-                # the draw is the sampling layer's: its own generator, so
-                # its place in the step changes no value
-                coords = coords_fn(t)
-                loss, lc, ls = step_losses(spec, content_feats, pred,
-                                           style_targets, style_moments,
-                                           alpha, coords,
-                                           sample_group=sample_group)
-            # under remat nothing else holds the taps: the backward
-            # recomputes them instead of keeping these alive beside the
-            # recomputed ones
-            del pred
-            with span("step.backward"):
-                grads = torch.autograd.grad(loss, leaves)
-            with span("step.update"):
-                opt.step(grads)
-            rows.append(torch.stack([loss, lc, ls]).detach())
+            rows.append(_step(spec, vgg, content_feats, style_targets,
+                              style_moments, alpha, pyramid, opt,
+                              lambda: coords_fn(t), sample_group, spatial))
     return torch.stack(rows)
 
 
@@ -452,10 +508,43 @@ class PairTerms(NamedTuple):
     weights: object = None
 
 
+def _batch_step(spec: StepSpec, vgg: VGG, content, pairs, pyramid,
+                opt: RMSprop, draw, sample_group=None) -> torch.Tensor:
+    """One step of :func:`batch_steps` at the coordinates ``draw(b)`` returns
+    for pair b; its (B, 3) rows. ``content``: the content features unbound
+    by pair."""
+    leaves = [p.requires_grad_(True) for p in pyramid]
+    with span("step.fold"):
+        img = fold_laplacian_pyramid(leaves)
+    with span("step.vgg"):
+        # unbind: one gradient buffer for all pairs in the backward
+        pred = [f.unbind(0) for f in extract_for_grad(spec, vgg, img)]
+    total, per = None, []
+    with span("step.losses"):
+        coords = [draw(b) for b in range(len(pairs))]
+        for b, pair in enumerate(pairs):
+            if coords[b].shape[0] == 0:
+                per.append(torch.zeros(3, device=img.device))
+                continue
+            loss, lc, ls = step_losses(
+                spec, [f[b] for f in content], [f[b] for f in pred],
+                pair.targets, pair.moments, pair.alpha, coords[b],
+                pair.weights, sample_group, pair=b)
+            total = loss if total is None else total + loss
+            per.append(torch.stack([loss, lc, ls]).detach())
+    del pred
+    with span("step.backward"):
+        grads = ([torch.zeros_like(p) for p in leaves] if total is None
+                 else torch.autograd.grad(total, leaves))
+    with span("step.update"):
+        opt.step(grads)
+    return torch.stack(per)
+
+
 def batch_steps(spec: StepSpec, n_steps: int, vgg: VGG, content_feats,
                 pairs: Sequence[PairTerms], pyramid, opt: RMSprop,
                 coords_fn: Callable[[int, int], torch.Tensor],
-                sample_group=None):
+                sample_group=None, step_gens=None):
     """``n_steps`` (>= 1) of the batched step for B pairs: the (B, ...)
     pyramid folds into B images, VGG runs once on all of them, and pair b
     takes :func:`step_losses` at its own coordinates ``coords_fn(b, t)``
@@ -469,38 +558,26 @@ def batch_steps(spec: StepSpec, n_steps: int, vgg: VGG, content_feats,
     run adds nothing and rows zeros. ``pyramid`` is updated in place; the
     per-step (loss, loss_c, loss_s) rows come back as one (n_steps, B, 3)
     tensor on the run's device, so the loop never waits for the card.
-    ``sample_group``: as in :func:`step_losses`.
+    ``sample_group``: as in :func:`step_losses`. ``step_gens``: the B
+    generators ``coords_fn`` draws from, pair b's from the b-th, as
+    :func:`optimization_steps` takes them.
     """
+    if step_route(spec, pyramid[0].device, step_gens,
+                  sample_group) == "graph":
+        def step(t, vgg, inputs, pyramid, opt):
+            content, pairs = inputs
+            return _batch_step(spec, vgg, [f.unbind(0) for f in content],
+                               pairs, pyramid, opt,
+                               lambda b: coords_fn(b, t))
+
+        return graphs.replayed(("batch", spec), n_steps, step, vgg,
+                               [content_feats, list(pairs)], pyramid, opt,
+                               step_gens)
     content = [f.unbind(0) for f in content_feats]
     rows = []
     for t in range(n_steps):
         with span("step"):
-            leaves = [p.requires_grad_(True) for p in pyramid]
-            with span("step.fold"):
-                img = fold_laplacian_pyramid(leaves)
-            with span("step.vgg"):
-                # unbind: one gradient buffer for all pairs in the backward
-                pred = [f.unbind(0)
-                        for f in extract_for_grad(spec, vgg, img)]
-            total, per = None, []
-            with span("step.losses"):
-                coords = [coords_fn(b, t) for b in range(len(pairs))]
-                for b, pair in enumerate(pairs):
-                    if coords[b].shape[0] == 0:
-                        per.append(torch.zeros(3, device=img.device))
-                        continue
-                    loss, lc, ls = step_losses(
-                        spec, [f[b] for f in content], [f[b] for f in pred],
-                        pair.targets, pair.moments, pair.alpha, coords[b],
-                        pair.weights, sample_group, pair=b)
-                    total = loss if total is None else total + loss
-                    per.append(torch.stack([loss, lc, ls]).detach())
-            del pred
-            with span("step.backward"):
-                grads = ([torch.zeros_like(p) for p in leaves]
-                         if total is None
-                         else torch.autograd.grad(total, leaves))
-            with span("step.update"):
-                opt.step(grads)
-            rows.append(torch.stack(per))
+            rows.append(_batch_step(spec, vgg, content, pairs, pyramid, opt,
+                                    lambda b: coords_fn(b, t),
+                                    sample_group))
     return torch.stack(rows)

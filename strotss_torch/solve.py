@@ -34,6 +34,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from strotss_torch import graphs
 from strotss_torch.config import StrotssConfig
 from strotss_torch.models.vgg import VGG
 from strotss_torch.ops.image import (
@@ -335,6 +336,9 @@ def stylize_single(
         if cadence != cfg.log_every:
             cfg = dataclasses.replace(cfg, log_every=cadence)
     n_regions = int(content_masks.shape[0]) if masked else 0
+    # the step may replay a CUDA graph where its coordinates are the step
+    # generator's draws alone, on one device (programs.step_route)
+    own_draws = coords_source is None and mesh is None
     fingerprint = _fingerprint(cfg, spec, content, style, multi, style_ns,
                                weights, n_regions, warm)
     resume = ckpt.load_meta(cfg.checkpoint_dir)
@@ -384,6 +388,7 @@ def stylize_single(
                     prev = stylized if stylized is not None else content
                     style_gen, step_gen = scale_generators(cfg.seed, i,
                                                            device)
+                    gens = [step_gen] if own_draws else None
                     with torch.no_grad():
                         scl_c, scl_s, pyramid = scale_seed(
                             mode, chw, shw, cfg.pyramid_levels, content,
@@ -432,7 +437,8 @@ def stylize_single(
                     curve.append(optimization_steps(
                         spec, k, vgg, content_feats, style_targets,
                         style_moments, alpha, pyramid, opt,
-                        lambda t, d=done: coords_fn(d + t), group, spatial))
+                        lambda t, d=done: coords_fn(d + t), group, spatial,
+                        gens))
                     image = None
                     if cfg.checkpoint_dir or (snapshot_cb is not None
                                               and cfg.save_every > 0):
@@ -486,6 +492,8 @@ def stylize_single(
             info["scales"].append(entry)
             alpha /= 2.0
         info["seconds"] = time.perf_counter() - t_total
+    # the step graphs of this call's scale shapes stay for the next call
+    graphs.end_call()
     # the float image before quantization: feed it back as ``init_image``
     # to refine (postprocess renormalizes, so the uint8 image would move
     # the next run's seed)

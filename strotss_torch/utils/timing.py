@@ -21,7 +21,13 @@ timeline, where they would read as device activity.
 Counters (:func:`count`) are always on: a dict of integers the kernels'
 wrappers add their launches to (``launch.<kernel>``). They are
 incremented from the autograd engine's thread too, while the thread that
-called the backward pass waits for it.
+called the backward pass waits for it. A step replayed from a CUDA graph
+(:mod:`strotss_torch.graphs`) runs no Python: its launches count once,
+when the graph is captured, and the graph counters count the rest
+(``graph.capture``, ``graph.replay`` a step; ``graph.hit``,
+``graph.miss`` a step-layer call that found its graph captured or not).
+Such a step's span is ``step``, holding ``step.capture`` (the step's own
+spans inside it) where it is captured and ``step.replay``.
 """
 
 from __future__ import annotations

@@ -576,6 +576,21 @@ def _launches():
                                    "block1_fwd", "block1_bwd")}
 
 
+def _graph_steps():
+    """The steps replayed from a CUDA graph and the graphs captured so
+    far."""
+    now = timing.counters()
+    return now.get("graph.replay", 0), now.get("graph.capture", 0)
+
+
+def _issued(steps, since):
+    """Of ``steps`` steps run since the reading ``since`` of
+    :func:`_graph_steps`, those whose launches the wrappers count: a
+    replayed step launches nothing through them, a captured one once."""
+    replays, captures = _graph_steps()
+    return steps - (replays - since[0]) + (captures - since[1])
+
+
 def _counted_run(content, style, cfg, **kw):
     import strotss_torch
 
@@ -598,15 +613,18 @@ def _small_images():
 def test_blended_run_on_card(cuda_device):
     """Two styles at 0.7/0.3, 2 scales x 3 steps at full width: K1 twice,
     K2a, K2b and K3b once a step, K3a once a step and once an image a
-    scale (3 images)."""
+    scale (3 images); a step replayed from a CUDA graph launches nothing
+    through the wrappers, a captured one once."""
     from strotss_torch import StrotssConfig
 
     content, style, style2 = _small_images()
     cfg = StrotssConfig(levels=2, max_iter=3)
+    since = _graph_steps()
     img, info, got = _counted_run(content, [style, style2], cfg,
                                   style_weights=[0.7, 0.3])
-    assert got == {"remd_mins": 12, "selfsim_fwd": 6, "selfsim_bwd": 6,
-                   "block1_fwd": 6 + 3 * 2, "block1_bwd": 6}
+    n = _issued(6, since)
+    assert got == {"remd_mins": 2 * n, "selfsim_fwd": n, "selfsim_bwd": n,
+                   "block1_fwd": n + 3 * 2, "block1_bwd": n}
     assert all(np.all(np.isfinite(s["curve"])) for s in info["scales"])
     assert img.dtype == torch.uint8 and img.is_cuda
 
@@ -643,7 +661,8 @@ def test_resume_on_card(cuda_device, tmp_path):
 
 @pytest.mark.cuda
 def test_remat_launches_on_card(cuda_device):
-    """Under remat K3a runs twice a step (the backward recomputes it)."""
+    """Under remat K3a runs twice a step (the backward recomputes it), and
+    every step runs eagerly."""
     import dataclasses
 
     from strotss_torch import StrotssConfig
@@ -652,12 +671,16 @@ def test_remat_launches_on_card(cuda_device):
     cfg = StrotssConfig(levels=1, max_iter=3)
     counts = []
     for remat in (False, True):
+        since = _graph_steps()
         _, info, got = _counted_run(content, style,
                                     dataclasses.replace(cfg, remat=remat))
-        counts.append(got["block1_fwd"])
-        assert got["block1_bwd"] == 3
+        # a step replayed from a CUDA graph launches nothing through the
+        # wrappers; a run under remat runs every step eagerly
+        n = _issued(3, since)
+        counts.append((got["block1_fwd"], n))
+        assert got["block1_bwd"] == n
         assert np.all(np.isfinite(info["scales"][0]["curve"]))
-    assert counts == [3 + 2, 2 * 3 + 2]
+    assert counts == [(counts[0][1] + 2, counts[0][1]), (2 * 3 + 2, 3)]
 
 
 @pytest.mark.cuda
@@ -676,16 +699,17 @@ def test_batch_launches_on_card(cuda_device):
     contents = rng.random((3, 48, 64, 3)).astype(np.float32)
     styles = rng.random((3, 64, 56, 3)).astype(np.float32)
     cfg = StrotssConfig(levels=2, max_iter=3)
-    before = _launches()
+    before, since = _launches(), _graph_steps()
     img, info = stylize_batch(contents, styles, cfg,
                               vgg_params=random_params("16", 0),
                               alphas=[0.5, 1.0, 4.0], pair_seeds=[1, 2, 3],
                               device="cuda")
     torch.cuda.synchronize()
     got = {k: v - before[k] for k, v in _launches().items()}
-    assert got == {"remd_mins": 2 * 3 * 6, "selfsim_fwd": 3 * 6,
-                   "selfsim_bwd": 3 * 6, "block1_fwd": 6 + 2 * 2,
-                   "block1_bwd": 6}
+    n = _issued(6, since)
+    assert got == {"remd_mins": 2 * 3 * n, "selfsim_fwd": 3 * n,
+                   "selfsim_bwd": 3 * n, "block1_fwd": n + 2 * 2,
+                   "block1_bwd": n}
     assert img.shape == (3, 96, 128, 3) and img.dtype == torch.uint8
     for b, (alpha, seed) in enumerate(zip([0.5, 1.0, 4.0], [1, 2, 3])):
         _, one = stylize_single(
@@ -924,7 +948,9 @@ def test_gather_launches_in_runs_on_card(cuda_device):
     """Every paired and style sample of a run goes through K5: a forward a
     region a pair a step plus one a region a pair a scale for the style
     targets, two backward launches a region a pair a step (a single run
-    with 2 regions and a 3-pair batch, 2 scales x 3 steps)."""
+    with 2 regions and a 3-pair batch, 2 scales x 3 steps; the batch's
+    steps replayed from a CUDA graph launch nothing through the
+    wrappers)."""
     import strotss_torch
     from strotss_torch import StrotssConfig
     from strotss_torch.parallel import stylize_batch
@@ -943,9 +969,11 @@ def test_gather_launches_in_runs_on_card(cuda_device):
             _count("gather_bwd") - before[1]) == (2 * 6 + 2 * 2, 2 * 2 * 6)
     rng = np.random.default_rng(1)
     before = (_count("gather_fwd"), _count("gather_bwd"))
+    since = _graph_steps()
     stylize_batch(rng.random((3, 48, 64, 3)).astype(np.float32),
                   rng.random((3, 64, 56, 3)).astype(np.float32), cfg,
                   vgg_params=random_params("16", 0), alphas=[0.5, 1.0, 4.0],
                   pair_seeds=[1, 2, 3], device="cuda")
+    n = _issued(6, since)
     assert (_count("gather_fwd") - before[0],
-            _count("gather_bwd") - before[1]) == (3 * 6 + 3 * 2, 2 * 3 * 6)
+            _count("gather_bwd") - before[1]) == (3 * n + 3 * 2, 2 * 3 * n)

@@ -387,7 +387,8 @@ def spatial_steps(content, style, cfg_kw, shape=None,
                 torch.autograd.grad(loss[0], leaves))
 
     def held_steps(spec, n, vgg, content_feats, targets, moments, alpha,
-                   pyramid, opt, coords_fn, group=None, spatial=None):
+                   pyramid, opt, coords_fn, group=None, spatial=None,
+                   step_gens=None):
         whole = programs.extract_hypercolumn(vgg, content_feats.image)
         rows = []
         for t in range(n):
