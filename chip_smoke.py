@@ -16,7 +16,9 @@ threshold, with its operands' preparation held to their plain layout,
 and the streamed Sinkhorn loss and gradient; the hypercolumn gathers,
 kernel pair K5, at the 512 px scale's 10 maps and at 32769 samples, rows
 bit for bit the plain route's, gradients bit for bit their mirror and
-within one unit in the last place of float64), runs a short slice of the
+within one unit in the last place of float64; the moment loss's kernel
+set K6 at 1024 x 2179 against its float64 mirror, with its times beside
+the plain route's and the library's GEMMs), runs a short slice of the
 64 px scale with the kernels and with the plain versions, and then drives
 the default stylization (VGG16, 9 taps, 1024 samples, 4 scales to 512 px)
 through ``strotss_torch.stylize``, counting each kernel's launches (K5's
@@ -94,6 +96,10 @@ _REPLACES = {
     # the JAX package gathers through XLA
     "gather_fwd": "none (strotss_tpu/ops/sampling.py, XLA gathers)",
     "gather_bwd": "none (strotss_tpu/ops/sampling.py, XLA gathers)",
+    # the JAX package leaves the moments to XLA
+    "moments_stats": "none (strotss_tpu/ops/losses.py, XLA)",
+    "moments_fwd": "none (strotss_tpu/ops/losses.py, XLA)",
+    "moments_bwd": "none (strotss_tpu/ops/losses.py, XLA)",
 }
 _SOURCES = {
     "remd_mins": "strotss_torch/csrc/remd.cu",
@@ -104,6 +110,9 @@ _SOURCES = {
     "sinkhorn_lse": "strotss_torch/csrc/sinkhorn.cu",
     "gather_fwd": "strotss_torch/csrc/gather.cu",
     "gather_bwd": "strotss_torch/csrc/gather.cu",
+    "moments_stats": "strotss_torch/csrc/moments.cu",
+    "moments_fwd": "strotss_torch/csrc/moments.cu",
+    "moments_bwd": "strotss_torch/csrc/moments.cu",
 }
 
 
@@ -1218,6 +1227,152 @@ def phase_gather(rates):
     return {"fwd": fwd, "bwd": bwd}
 
 
+#: K6's kernels, by the names a profile gives them
+_K6_KERNELS = ("moments_prep_kernel", "moments_cov_kernel",
+               "moments_finish_kernel", "moments_bwd_kernel")
+
+
+def phase_moments(rates):
+    """K6 at the main path's shape (1024 rows of 2179 channels against a
+    style target's statistics): the loss within 2^-16 of its float64
+    mirror's, H equal to the mirror's but where a float64 difference is
+    tiny, the gradient within its bound of the float64 product with the
+    kernel's own H (tests/test_torch_moments.py states the tolerances),
+    two calls bit for bit; the statistics (``moments.stats``) symmetric
+    bit for bit, their mean within 1e-6 of max|y| and their covariance
+    within 1e-5 of max|cov| of float64's, as the card tests hold them.
+    Then device and CUDA-event ms of the forward (3 launches), the
+    backward (1), both through autograd and the statistics (2), against
+    the bound ``moments_roofline_pct`` prices (4 n C^2 products a step at
+    the bf16 peak, the full products as ``mfu_pct`` counts them; 2 n C^2
+    for the statistics), the plain route's time and the library
+    yardstick's: ``cx.T @ cx`` and its backward through autograd, the
+    three float32 GEMMs the plain route runs. Returns the kernels line's
+    ``moments_stats``, ``moments_fwd`` and ``moments_bwd`` entries."""
+    import torch
+
+    from strotss_torch.ops.kernels import moments
+
+    n, c = 1024, 2179
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(24)
+    scale = torch.rand(c, generator=gen, device=dev) * 1.8 + 0.2
+    y = torch.randn(n, c, generator=gen, device=dev) * scale + 0.5
+    tm, tv = moments.stats_plain(
+        torch.randn(n, c, generator=gen, device=dev) * scale)
+    tm, tv = tm.contiguous(), tv.contiguous()
+    one = torch.ones((), device=dev)
+    loss, saved = moments.loss_fwd(y, tm, tv)
+    dx = moments.loss_bwd(saved, one, n, c)
+    loss2, saved2 = moments.loss_fwd(y, tm, tv)
+    check(torch.equal(loss, loss2)
+          and torch.equal(saved.h[:c, :c], saved2.h[:c, :c])
+          and torch.equal(dx, moments.loss_bwd(saved2, one, n, c)),
+          "moments: two calls differ")
+    mean, cov = moments.stats(y)
+    check(torch.equal(cov, cov.T), "moments: statistics not symmetric")
+    y64, tm64, tv64 = y.double().cpu(), tm.double().cpu(), tv.double().cpu()
+    m64 = y64.mean(0, keepdim=True)
+    mean_err = float((mean.double().cpu() - m64).abs().max()
+                     / y64.abs().max())
+    check(mean_err <= 1e-6, f"moments: statistics' mean {mean_err:.3g} of "
+          "max|y| from float64")
+    loss64, _, h64 = moments.mirror(y64, tm64, tv64)
+    loss_rel = abs(float(loss) - float(loss64)) / float(loss64)
+    plain_rel = abs(float(moments.loss_plain((tm, tv), y)) - float(loss64)) \
+        / float(loss64)
+    check(loss_rel <= 2.0 ** -16, f"moments: loss {loss_rel:.3g} off")
+    hk = saved.h[:c, :c].double().cpu()
+    cx = y64 - y64.mean(0)
+    cov64 = cx.T @ cx / n
+    small = torch.minimum((cov64 - tv64).abs(), (cov64 - tv64.T).abs())
+    flips = int((hk != h64).sum())
+    check(bool((small[hk != h64] <= 2.0 ** -16 * float(
+        cov64.abs().max())).all()), "moments: a sign flipped off a tie")
+    want = (cx @ hk - (cx.sum(0) @ hk) / n) / (n * c * c) \
+        + saved.msign.double().cpu() / (n * c)
+    bound = 2.0 ** -16 * (cx.abs() @ hk.abs()) / (n * c * c) \
+        + 2.0 ** -20 * want.abs()
+    grad_err = float(((dx.double().cpu() - want).abs() / bound).max())
+    check(grad_err <= 1.0, f"moments: gradient {grad_err:.3g} bounds off")
+    cov_err = float((cov.double().cpu() - cov64).abs().max()
+                    / cov64.abs().max())
+    check(cov_err <= 1e-5, f"moments: statistics' covariance {cov_err:.3g} "
+          "of max|cov| from float64")
+    _, pcov = moments.stats_plain(y)
+    plain_cov_err = float((pcov.double().cpu() - cov64).abs().max()
+                          / cov64.abs().max())
+
+    yg = y.clone().requires_grad_()
+    g_cc = torch.randn(c, c, generator=gen, device=dev)
+
+    def fwd():
+        with torch.no_grad():
+            moments.loss_fwd(y, tm, tv, want_grad=True)
+
+    def bwd():
+        moments.loss_bwd(saved, one, n, c)
+
+    def both(impl):
+        def fn():
+            v = moments.moment_matching_from_stats((tm, tv), yg, impl)
+            torch.autograd.grad(v, yg)
+        return fn
+
+    def stats(impl):
+        def fn():
+            moments.moment_stats(y, impl)
+        return fn
+
+    def library():
+        cxg = (yg - yg.mean(0)).detach().requires_grad_()
+        p = cxg.T @ cxg
+        torch.autograd.grad(p, cxg, g_cc)
+
+    step_ms = 4 * n * c * c / rates["bf16"] * 1e3
+    stats_ms = 2 * n * c * c / rates["bf16"] * 1e3
+    by = "operations (bf16 peak)"
+    fwd_row = {"max_abs_err": abs(float(loss) - float(loss64)),
+               "loss_rel_err": loss_rel, "plain_loss_rel_err": plain_rel,
+               "sign_flips": flips, "ms": time_ms(fwd),
+               "device_ms": device_ms(fwd, _K6_KERNELS[:3]),
+               "plain_ms": None, "library_ms": None,
+               "bound_ms": 2 * n * c * c / rates["bf16"] * 1e3,
+               "bound_by": by}
+    bwd_row = {"max_abs_err": float((dx.double().cpu() - want).abs().max()),
+               "grad_err_in_bounds": grad_err, "ms": time_ms(bwd),
+               "device_ms": device_ms(bwd, _K6_KERNELS[3:]),
+               "plain_ms": None, "library_ms": None,
+               "bound_ms": 2 * n * c * c / rates["bf16"] * 1e3,
+               "bound_by": by,
+               "fwd_bwd": {"ms": time_ms(both("kernel")),
+                           "device_ms": device_ms(both("kernel"),
+                                                  _K6_KERNELS),
+                           "plain_ms": time_ms(both("plain")),
+                           "library_ms": time_ms(library),
+                           "bound_ms": step_ms, "bound_by": by,
+                           "bound_3xtf32_ms": (3 * n * c * (c + 128)
+                                               + 2 * 2 * n * c * c)
+                           / rates["tf32"] * 1e3}}
+    for name in _K6_KERNELS:
+        bwd_row["fwd_bwd"][name + "_device_ms"] = device_ms(
+            both("kernel"), (name,))
+    stats_row = {"max_abs_err": float((cov.double().cpu() - cov64).abs()
+                                      .max()),
+                 "stats_cov_rel_err": cov_err,
+                 "plain_stats_cov_rel_err": plain_cov_err,
+                 "stats_mean_rel_err": mean_err,
+                 "ms": time_ms(stats("kernel")),
+                 "device_ms": device_ms(stats("kernel"), _K6_KERNELS[:2]),
+                 "plain_ms": time_ms(stats("plain")), "library_ms": None,
+                 "bound_ms": stats_ms, "bound_by": by}
+    out = {"moments_stats": stats_row, "moments_fwd": fwd_row,
+           "moments_bwd": bwd_row}
+    emit({"phase": "moments", "shape": [n, c], **out})
+    return out
+
+
 def _k5_table_us(xs, ys, reps=2000):
     """Host microseconds of the wrapper's set-up of one paired call: the
     sides' factors and lookups (``sampling._side``), and the map table
@@ -1267,8 +1422,9 @@ def phase_slice(vgg_params):
     and cuDNN's and the gathers' backward passes are not bitwise
     reproducible (the plain path run twice differs by ~2% in loss after
     10 bf16 steps). So each step is evaluated with the kernels and with
-    the plain versions from the same pyramid and coordinates, and the run
-    goes on with the kernels' gradient. The kernels' gradients are held
+    the plain versions from the same pyramid and coordinates (the style
+    target's statistics on each side's own route), and the run goes on
+    with the kernels' gradient. The kernels' gradients are held
     to their plain versions in the kernel phase. Each step holds:
 
     - the plain losses on the kernel route's features to rtol 1e-3 (K1,
@@ -1298,7 +1454,7 @@ def phase_slice(vgg_params):
     cfg = strotss_torch.StrotssConfig(levels=1, max_iter=10)
     spec_k = programs.spec_from_config(cfg, "cuda")
     spec_p = spec_k._replace(remd_impl="plain", selfsim_impl="plain",
-                             block1_impl="plain")
+                             block1_impl="plain", moments_impl="plain")
     check(spec_k.block1_impl == "pallas",
           f"slice: block1 route {spec_k.block1_impl!r}, want 'pallas'")
     programs.set_precision(spec_k)
@@ -1323,7 +1479,8 @@ def phase_slice(vgg_params):
         targets = sampling.sample_style(
             sampling.full_grid_coords(gen, shw, n, "cuda"),
             programs.extract_hypercolumn(vgg, scl_s))[None]
-        moments = [moment_stats(targets[0])]
+        moments = [moment_stats(targets[0], spec_k.moments_impl)]
+        moments_p = [moment_stats(targets[0], "plain")]
     pyramid = [p.contiguous() for p in pyramid]
     opt = programs.RMSprop(pyramid, cfg.lr)
     alpha = cfg.initial_alpha()
@@ -1342,12 +1499,12 @@ def phase_slice(vgg_params):
         grads = torch.autograd.grad(loss, leaves)
         with torch.no_grad():
             plain_losses, _, _ = programs.step_losses(
-                spec_p, content_feats, pred, targets, moments, alpha,
+                spec_p, content_feats, pred, targets, moments_p, alpha,
                 step_coords)
             pred_p = programs.extract_hypercolumn(
                 vgg_p, fold_laplacian_pyramid(pyramid))
             plain, _, _ = programs.step_losses(spec_p, content_feats, pred_p,
-                                               targets, moments, alpha,
+                                               targets, moments_p, alpha,
                                                step_coords)
             # yardstick, not checked: block1 on cuDNN (no TF32 here)
             cudnn, _, _ = programs.step_losses(
@@ -1381,7 +1538,7 @@ def phase_slice(vgg_params):
 #: by the kernel's name in the kernels line
 KERNELS = ("remd_mins", "selfsim_fwd", "selfsim_bwd", "block1_fwd",
            "block1_bwd", "sinkhorn_lse", "sinkhorn_prep", "gather_fwd",
-           "gather_bwd")
+           "gather_bwd", "moments_stats", "moments_fwd", "moments_bwd")
 
 
 def _k5_want(paired: int, style: int) -> dict:
@@ -1390,6 +1547,15 @@ def _k5_want(paired: int, style: int) -> dict:
     ``style`` style-target calls (one a region, or a style, a pair a
     scale; no backward)."""
     return {"gather_fwd": paired + style, "gather_bwd": 2 * paired}
+
+
+def _k6_want(losses: int, targets: int) -> dict:
+    """K6's launches in a run of ``losses`` moment losses (one a region a
+    pair a step), each with its backward, and ``targets`` style targets'
+    statistics (one a region a pair a scale; a blend's styles make one
+    target)."""
+    return {"moments_stats": 2 * targets, "moments_fwd": 3 * losses,
+            "moments_bwd": losses}
 
 
 def _launches(since=None):
@@ -1514,7 +1680,7 @@ def phase_main():
     want = {"remd_mins": 2 * n, "selfsim_fwd": n, "selfsim_bwd": n,
             "block1_fwd": n + 2 * cfg.levels, "block1_bwd": n,
             "sinkhorn_lse": 0, "sinkhorn_prep": 0,
-            **_k5_want(n, cfg.levels)}
+            **_k5_want(n, cfg.levels), **_k6_want(n, cfg.levels)}
     check(launches == want, f"main: launches {launches}, want {want}")
     return launches, info
 
@@ -1567,7 +1733,7 @@ def phase_graph(vgg_params):
         targets = sampling.sample_style(
             sampling.full_grid_coords(gen, shw, n, "cuda"),
             programs.extract_hypercolumn(vgg, scl_s), spec.sample_impl)[None]
-        moments = [moment_stats(targets[0])]
+        moments = [moment_stats(targets[0], spec.moments_impl)]
 
     def side(seed):
         pyr = [p.detach().clone().contiguous() for p in pyramid]
@@ -1686,12 +1852,13 @@ def phase_sinkhorn(cosine_pass_ms):
           "10 steps a scale, plain materialized Sinkhorn", **summary})
     _check_curves("sinkhorn (a)", info, falls=True)
     steps_a = cfg_a.levels * cfg_a.max_iter
+    k56 = {**_k5_want(steps_a, cfg_a.levels),
+           **_k6_want(steps_a, cfg_a.levels)}
     check(launches["sinkhorn_lse"] == 0 and launches["sinkhorn_prep"] == 0
           and launches["remd_mins"] == 0
-          and {k: launches[k] for k in ("gather_fwd", "gather_bwd")}
-          == _k5_want(steps_a, cfg_a.levels),
+          and {k: launches[k] for k in k56} == k56,
           f"sinkhorn (a): launches {launches}, want no sinkhorn_lse, "
-          f"sinkhorn_prep or remd_mins, K5 {_k5_want(steps_a, cfg_a.levels)}")
+          f"sinkhorn_prep or remd_mins, K5 and K6 {k56}")
     check(img.dtype == torch.uint8 and max(img.shape[:2]) == 1024,
           f"sinkhorn (a): output {img.dtype} {tuple(img.shape)}")
 
@@ -1730,7 +1897,8 @@ def phase_sinkhorn(cosine_pass_ms):
     want = {"remd_mins": 0, "selfsim_fwd": steps, "selfsim_bwd": steps,
             "block1_fwd": steps + 2 * cfg_b.levels, "block1_bwd": steps,
             "sinkhorn_lse": steps * 2 * cfg_b.sinkhorn_iters * 2,
-            "sinkhorn_prep": steps * 2, **_k5_want(steps, cfg_b.levels)}
+            "sinkhorn_prep": steps * 2, **_k5_want(steps, cfg_b.levels),
+            **_k6_want(steps, cfg_b.levels)}
     check(launches == want, f"sinkhorn (b): launches {launches}, want {want}")
     hw = resize_max_hw(*content.shape[1:3], cfg_b.scale_sizes()[-1])
     check(img.dtype == torch.uint8 and tuple(img.shape) == (*hw, 3),
@@ -1763,7 +1931,8 @@ def _mask_pngs(tmp, content_hw, style_hw):
 def _masked_step(vgg_params, content, style, cmasks_raw, smasks_raw):
     """One masked step at the 64 px scale of the full-width configuration,
     its losses with the kernels and with the plain versions from the same
-    state: the same VGG features, region masks, targets and coordinates.
+    state: the same VGG features, region masks, targets and coordinates,
+    the targets' statistics on each side's own route.
     The REMD and self-similarity routes compute the same function (float32
     sums in another order), so (loss, loss_c, loss_s) agree to rtol 1e-3,
     as in the slice phase. Returns the launches the kernel route made and
@@ -1779,7 +1948,8 @@ def _masked_step(vgg_params, content, style, cmasks_raw, smasks_raw):
 
     cfg = strotss_torch.StrotssConfig(levels=1, max_iter=1)
     spec_k = programs.spec_from_config(cfg, "cuda", masked=True)
-    spec_p = spec_k._replace(remd_impl="plain", selfsim_impl="plain")
+    spec_p = spec_k._replace(remd_impl="plain", selfsim_impl="plain",
+                             moments_impl="plain")
     check((spec_k.remd_impl, spec_k.selfsim_impl) == ("auto", "auto"),
           f"masked: step routes {spec_k}")
     programs.set_precision(spec_k)
@@ -1804,7 +1974,8 @@ def _masked_step(vgg_params, content, style, cmasks_raw, smasks_raw):
                                       mask=sampling.prepare_mask(m.cuda(),
                                                                  shw)),
             style_feats) for m in smasks_raw])
-        moments = [moment_stats(t) for t in targets]
+        moments = [moment_stats(t, spec_k.moments_impl) for t in targets]
+        moments_p = [moment_stats(t, "plain") for t in targets]
     coords = torch.stack([sampling.strided_grid_coords(gen, chw, n, "cuda",
                                                        mask=m)
                           for m in cmasks])
@@ -1817,7 +1988,7 @@ def _masked_step(vgg_params, content, style, cmasks_raw, smasks_raw):
     launched = _launches(before)
     with torch.no_grad():
         want = programs.step_losses(spec_p, content_feats, pred, targets,
-                                    moments, cfg.initial_alpha(), coords)
+                                    moments_p, cfg.initial_alpha(), coords)
     errs = [abs(float(a.detach()) - float(b)) / abs(float(b))
             for a, b in zip(got, want)]
     check(all(bool(torch.isfinite(g).all()) for g in grads),
@@ -1877,7 +2048,8 @@ def phase_masked(vgg_params):
     want = {"remd_mins": 2 * k * steps, "selfsim_fwd": k * steps,
             "selfsim_bwd": k * steps, "block1_fwd": steps + 2 * cfg.levels,
             "block1_bwd": steps, "sinkhorn_lse": 0, "sinkhorn_prep": 0,
-            **_k5_want(k * steps, k * cfg.levels)}
+            **_k5_want(k * steps, k * cfg.levels),
+            **_k6_want(k * steps, k * cfg.levels)}
     check(launches == want, f"masked: launches {launches}, want {want}")
     return launches
 
@@ -2042,7 +2214,8 @@ def phase_batch(main_info):
     want = {"remd_mins": 2 * b * n, "selfsim_fwd": b * n,
             "selfsim_bwd": b * n, "block1_fwd": n + 2 * cfg.levels,
             "block1_bwd": n, "sinkhorn_lse": 0, "sinkhorn_prep": 0,
-            **_k5_want(b * n, b * cfg.levels)}
+            **_k5_want(b * n, b * cfg.levels),
+            **_k6_want(b * n, b * cfg.levels)}
     check(launches == want, f"batch: launches {launches}, want {want}")
     del imgs, info
     torch.cuda.empty_cache()
@@ -2078,7 +2251,8 @@ def phase_batch(main_info):
              "selfsim_bwd": 3 * msteps,
              "block1_fwd": msteps + 2 * mcfg.levels, "block1_bwd": msteps,
              "sinkhorn_lse": 0, "sinkhorn_prep": 0,
-             **_k5_want(3 * msteps, 3 * mcfg.levels)}
+             **_k5_want(3 * msteps, 3 * mcfg.levels),
+             **_k6_want(3 * msteps, 3 * mcfg.levels)}
     check(mlaunches == mwant,
           f"batch masked: launches {mlaunches}, want {mwant}")
     torch.cuda.empty_cache()
@@ -2423,7 +2597,8 @@ def phase_features(main_info, max_iter=200):
         want = {"remd_mins": 2 * steps, "selfsim_fwd": steps,
                 "selfsim_bwd": steps, "block1_fwd": steps + 3 * cfg.levels,
                 "block1_bwd": steps, "sinkhorn_lse": 0, "sinkhorn_prep": 0,
-                **_k5_want(steps, 2 * cfg.levels)}
+                **_k5_want(steps, 2 * cfg.levels),
+                **_k6_want(steps, cfg.levels)}
         check(launches == want,
               f"features: blended launches {launches}, want {want}")
         blended = launches
@@ -2470,7 +2645,7 @@ def phase_features(main_info, max_iter=200):
         want = {"remd_mins": 2 * rest, "selfsim_fwd": rest,
                 "selfsim_bwd": rest, "block1_fwd": rest + 3 * 2,
                 "block1_bwd": rest, "sinkhorn_lse": 0, "sinkhorn_prep": 0,
-                **_k5_want(rest, 2 * 2)}
+                **_k5_want(rest, 2 * 2), **_k6_want(rest, 2)}
         check(launches_r == want,
               f"features: resume launches {launches_r}, want {want}")
         _check_curves("features resume", info_r, falls=False)
@@ -2497,7 +2672,8 @@ def phase_features(main_info, max_iter=200):
                     "selfsim_bwd": n,
                     "block1_fwd": (2 if remat else 1) * n + 2,
                     "block1_bwd": n, "sinkhorn_lse": 0,
-                    "sinkhorn_prep": 0, **_k5_want(n, 1)}
+                    "sinkhorn_prep": 0, **_k5_want(n, 1),
+                    **_k6_want(n, 1)}
             check(launches_f == want, f"features: refine (remat {remat}) "
                   f"launches {launches_f}, want {want}")
             check([s["scale"] for s in info_f["scales"]] == [512]
@@ -3228,7 +3404,7 @@ def phase_multi():
     want = {"remd_mins": 2 * 4 * steps, "selfsim_fwd": 4 * steps,
             "selfsim_bwd": 4 * steps, "block1_fwd": 4 * steps + 8,
             "block1_bwd": 4 * steps, "sinkhorn_lse": 0, "sinkhorn_prep": 0,
-            **_k5_want(4 * steps, 4)}
+            **_k5_want(4 * steps, 4), **_k6_want(4 * steps, 4)}
     check(all(s["launches"] == want for s in sh),
           f"multi (c): launches {[s['launches'] for s in sh]}, want {want}")
     # (d): each rank runs 2 pairs, so the one rank's runs of the same 2
@@ -3293,7 +3469,7 @@ def phase_multi():
     want = {"remd_mins": 2 * n, "selfsim_fwd": n, "selfsim_bwd": n,
             "block1_fwd": n + 8, "block1_bwd": n, "sinkhorn_lse": 0,
             "sinkhorn_prep": 0, "gather_fwd": 2 * n + 4,
-            "gather_bwd": 2 * n}
+            "gather_bwd": 2 * n, **_k6_want(n, 4)}
     check(all(s["launches"] == want for s in sp),
           f"multi (g): launches {[s['launches'] for s in sp]}, want {want}")
     floor = one["spatial"]
@@ -3337,7 +3513,7 @@ def phase_multi():
               "multi (j): a scale left no pyramid digest")
         want = {"remd_mins": 0, "selfsim_fwd": n, "selfsim_bwd": n,
                 "block1_fwd": n + 8, "block1_bwd": n, "sinkhorn_lse": 0,
-                "sinkhorn_prep": 0, **_k5_want(n, 4)}
+                "sinkhorn_prep": 0, **_k5_want(n, 4), **_k6_want(n, 4)}
         check(all(s["launches"] == want for s in runs),
               f"multi (j): launches at {per} steps a scale "
               f"{[s['launches'] for s in runs]}, want {want}")
@@ -3423,6 +3599,10 @@ _K4_FIELDS = ("library_ms", "split", "prep_ms", "prep_launches")
 _K5_FIELDS = ("plain_host_ms", "table_host_us", "gather_sort_kernel_device_ms",
               "gather_acc_kernel_device_ms", "grad_err_in_bounds",
               "plain_grad_err_in_bounds", "grad_err_in_bounds_n32769")
+#: K6's own fields in the kernels line
+_K6_FIELDS = ("loss_rel_err", "plain_loss_rel_err", "sign_flips",
+              "grad_err_in_bounds", "stats_cov_rel_err",
+              "plain_stats_cov_rel_err", "stats_mean_rel_err")
 
 
 def _with_yuv(main, yuv):
@@ -3450,7 +3630,8 @@ def kernels_line(meas, launches, masked, features, batched, multi,
     (B = 8 images at the batch's 64 px and 512 px content shapes: one
     launch, and B one-image launches as ``singles_ms``); the gather rows
     (K5) the gather phase's, at the 512 px scale's 10 maps and 1024
-    samples."""
+    samples); the moments rows (K6) the moments phase's, at 1024 samples
+    of 2179 channels."""
     ss_big = meas["selfsim_32769"]
     rows = [("remd_mins", _with_yuv(*meas["remd_mins"]))]
     for name in ("fwd", "bwd"):
@@ -3470,6 +3651,8 @@ def kernels_line(meas, launches, masked, features, batched, multi,
                                       prep_launches=launches[
                                           "sinkhorn_prep"])))
     rows += [(f"gather_{d}", meas["gather"][d]) for d in ("fwd", "bwd")]
+    rows += [(k, meas["moments"][k]) for k in ("moments_stats",
+                                               "moments_fwd", "moments_bwd")]
     out = []
     for name, m in rows:
         out.append({
@@ -3487,7 +3670,7 @@ def kernels_line(meas, launches, masked, features, batched, multi,
             "device_ms": m["device_ms"],
             **{k: v for k, v in m.items() if k in (
                 "yuv_both_c3", "n_32769", "fwd_bwd", "batched") + _K1_FIELDS
-               + _K2_FIELDS + _K4_FIELDS[1:] + _K5_FIELDS},
+               + _K2_FIELDS + _K4_FIELDS[1:] + _K5_FIELDS + _K6_FIELDS},
         })
     return {"kernels": out}
 
@@ -3514,6 +3697,7 @@ def main() -> int:
         phase_build()
         meas = phase_kernels(rates)
         meas["gather"] = phase_gather(rates)
+        meas["moments"] = phase_moments(rates)
         from strotss_torch.models.weights import random_params
 
         # seeded random weights: the card's machine has no pretrained VGG

@@ -96,6 +96,7 @@
 
 #include "tc.cuh"
 #include "tile.cuh"
+#include "wgmma.cuh"
 
 #define SK_TC_MIN_C 32  // C from which the tensor-core route is taken
 #define SK_ROW_PAD 256  // prepared rows: a multiple of this
@@ -205,115 +206,7 @@ sinkhorn_combine_kernel(const float* __restrict__ part, int n, int split,
 
 // ---- tensor-core route ---------------------------------------------------
 
-__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_addr(b)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* b, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_addr(b)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(smem_addr(b)) : "memory");
-}
-
-__device__ __forceinline__ uint32_t mbar_try_wait(uint64_t* b,
-                                                  uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done) : "r"(smem_addr(b)), "r"(parity) : "memory");
-  return done;
-}
-
-// Spins until the phase of parity `parity` of barrier b has completed. A
-// wait of more than ~2^34 clocks (several seconds; a whole pass at the
-// path's largest shape takes well under one) can only be a fault: the
-// kernel traps, and the launch reports an error instead of hanging.
-__device__ __forceinline__ void mbar_wait(uint64_t* b, uint32_t parity) {
-  if (mbar_try_wait(b, parity)) return;
-  const long long start = clock64();
-  while (!mbar_try_wait(b, parity))
-    if (clock64() - start > (1ll << 34)) __trap();
-}
-
-// TMA: the box at (channel k, row) of `map` into shared memory at dst,
-// completing on barrier b.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* b, int k, int row) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
-      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-         "r"(smem_addr(b)), "r"(k), "r"(row) : "memory");
-}
-
-// wgmma descriptor of a K-major tile of 16-float rows with 64-byte
-// swizzle, 8-row groups 512 bytes apart: the layout TMA writes with
-// CU_TENSOR_MAP_SWIZZLE_64B from a 512-byte aligned base. A k8 step inside
-// the row adds 32 bytes to the start address.
-__device__ __forceinline__ uint64_t sk_desc(uint32_t saddr) {
-  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(512 >> 4) << 32) | ((uint64_t)2 << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-// Keeps the compiler from moving accesses of the accumulators across a
-// wgmma fence or wait.
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-#define SK_R0                                                             \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
-  "%30, %31"
-#define SK_R1                                                             \
-  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, " \
-  "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, " \
-  "%60, %61, %62, %63"
-#define SK_R2                                                             \
-  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, " \
-  "%78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, " \
-  "%92, %93, %94, %95"
-#define SK_F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
-#define SK_F16(i) SK_F4(i), SK_F4(i + 4), SK_F4(i + 8), SK_F4(i + 12)
-#define SK_F32(i) SK_F16(i), SK_F16(i + 16)
-#define SK_F96 SK_F32(0), SK_F32(32), SK_F32(64)
-
-// d (+)= A (64 x 8) B (N x 8)^T, both K-major TF32 in shared memory; f32
-// sums; `accumulate` 0 starts from 0. d holds N / 2 floats a thread: for
-// n8 block j, d[4j + e] is (row g, column 8j + 2t + e) and d[4j + 2 + e]
-// row g + 8 of the warp's 16 rows (lane 4g + t).
-#define SK_WGMMA(NREG, N, REGS, OPS, DA, DB, AC)                           \
-  __device__ __forceinline__ void wgmma_tf32(                             \
-      float(&d)[NREG], uint64_t da, uint64_t db, int accumulate) {        \
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" AC ", 0;\n"          \
-                 "wgmma.mma_async.sync.aligned.m64n" N                    \
-                 "k8.f32.tf32.tf32 {" REGS "}, %" DA ", %" DB             \
-                 ", p, 1, 1;\n}\n"                                        \
-                 : OPS                                                    \
-                 : "l"(da), "l"(db), "r"(accumulate));                    \
-  }
-SK_WGMMA(96, "192", SK_R0 ", " SK_R1 ", " SK_R2, SK_F96, "96", "97", "98")
-#undef SK_WGMMA
+WGMMA_TF32_SS(96, "192", WG_R96, WG_F96, "96", "97", "98")
 
 // Folds one column tile's dot products (the accumulators) into the running
 // (max, sum) of the thread's two rows a (g) and b (g + 8). cb: the tile's
@@ -476,10 +369,10 @@ sinkhorn_lse_tc_kernel(const __grid_constant__ CUtensorMap ta,
 #pragma unroll
         for (int kk = 0; kk < SK_KS / 8; ++kk) {
           const uint32_t o = 32 * kk;
-          wgmma_tf32(acc, sk_desc(a_big + o), sk_desc(b_small + o),
+          wgmma_tf32(acc, desc_sw64(a_big + o), desc_sw64(b_small + o),
                      ks != p0 || kk != 0);
-          wgmma_tf32(acc, sk_desc(a_small + o), sk_desc(b_big + o), 1);
-          wgmma_tf32(acc, sk_desc(a_big + o), sk_desc(b_big + o), 1);
+          wgmma_tf32(acc, desc_sw64(a_small + o), desc_sw64(b_big + o), 1);
+          wgmma_tf32(acc, desc_sw64(a_big + o), desc_sw64(b_big + o), 1);
         }
         wg_commit();
         wg_wait<1>();
@@ -621,28 +514,6 @@ sinkhorn_lse_cc_kernel(const float* __restrict__ px,
 }
 
 // ---- C entries -------------------------------------------------------------
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, through the runtime (no link
-// against libcuda).
-static EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &res) == cudaSuccess &&
-        res == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
 
 // A TMA map of prepared parts (2 rows, cp) f32: boxes of 16 channels x
 // box_rows rows, 64-byte swizzle.

@@ -22,7 +22,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "strotss_torch")
-SOURCES = ("remd", "selfsim", "block1", "sinkhorn", "gather")
+SOURCES = ("remd", "selfsim", "block1", "sinkhorn", "gather", "moments")
 
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -49,6 +49,8 @@ _SIGNATURES = {
                      + [_F, _I, _P, _P, _P]),
     "gather_fwd": ("gather", [_P, _I, _P, _I, _P, _P, _P]),
     "gather_bwd": ("gather", [_P, _I, _P, _I, _P, _P, _P, _P]),
+    "moments_fwd": ("moments", [_P, _I, _I] + [_P] * 11),
+    "moments_bwd": ("moments", [_P] * 4 + [_I, _I, _P, _P]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

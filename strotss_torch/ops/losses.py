@@ -80,24 +80,32 @@ dist_metrics = {
 }
 
 
-def moment_stats(x: torch.Tensor):
-    """(mean (1,C), biased covariance (C,C)) of the rows of ``x``."""
-    x = reshape_2d(_f32(x))
-    xm = torch.mean(x, dim=0, keepdim=True)
-    cx = x - xm
-    return xm, (cx.T @ cx) / x.shape[0]
+def moment_stats(x: torch.Tensor, impl: str = "auto"):
+    """(mean (1,C), biased covariance (C,C)) of the rows of ``x``; on the
+    kernel's route (:mod:`strotss_torch.ops.kernels.moments`, K6) the
+    covariance is exactly symmetric. ``'auto'`` takes K6 on a CUDA tensor
+    that wants no gradient, the plain formula otherwise."""
+    from strotss_torch.ops.kernels.moments import moment_stats as _ms
+
+    return _ms(x, impl)
 
 
-def moment_matching_from_stats(stats, y: torch.Tensor) -> torch.Tensor:
-    """:func:`moment_matching` with the x-side stats precomputed."""
-    xm, xv = stats
-    ym, yv = moment_stats(y)
-    return mae(xv, yv) + mae(xm, ym)
+def moment_matching_from_stats(stats, y: torch.Tensor,
+                               impl: str = "auto") -> torch.Tensor:
+    """:func:`moment_matching` with the x-side stats precomputed;
+    ``'auto'`` takes K6 on CUDA tensors unless a gradient is wanted
+    through ``stats``, which K6 does not give."""
+    from strotss_torch.ops.kernels.moments import (
+        moment_matching_from_stats as _mm,
+    )
+
+    return _mm(stats, y, impl)
 
 
-def moment_matching(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def moment_matching(x: torch.Tensor, y: torch.Tensor,
+                    impl: str = "auto") -> torch.Tensor:
     """MAE(mean_x, mean_y) + MAE(cov_x, cov_y) with biased covariance."""
-    return moment_matching_from_stats(moment_stats(x), y)
+    return moment_matching_from_stats(moment_stats(x, impl), y, impl)
 
 
 def self_similarity(x: torch.Tensor, y: torch.Tensor,
@@ -206,6 +214,7 @@ def style_loss(
     target_moments: Optional[tuple] = None,
     remd=None,
     sinkhorn=None,
+    moments_impl: str = "auto",
 ) -> torch.Tensor:
     """``moments + T(cosine) + (1/max(alpha,1)) * T(YUV, 'both')``, with
     the transport term T REMD, or Sinkhorn under ``use_sinkhorn``.
@@ -218,12 +227,14 @@ def style_loss(
     the REMD function ``(target, prediction, distance) -> value`` in
     place of :func:`relaxed_emd`, and ``sinkhorn``: the Sinkhorn function
     of the same signature in place of :func:`sinkhorn` (the
-    sample-sharded ones under ``shard_samples``).
+    sample-sharded ones under ``shard_samples``). ``moments_impl``: the
+    moments' route (``'auto'``: kernel K6 on a CUDA tensor).
     """
     inv_alpha = 1.0 / max(float(alpha), 1.0)
     if target_moments is None:
-        target_moments = moment_stats(target)
-    l_m = moment_matching_from_stats(target_moments, prediction)
+        target_moments = moment_stats(target, moments_impl)
+    l_m = moment_matching_from_stats(target_moments, prediction,
+                                     moments_impl)
     yuv_t, yuv_p = rgb_to_yuv(_f32(target)), rgb_to_yuv(_f32(prediction))
     transport = sinkhorn if use_sinkhorn else remd
     if transport is None:

@@ -144,7 +144,7 @@ def prepare_scale_batch(spec: StepSpec, mode: str, chw, shw, levels: int,
                               for c in xy])
                  if len(xy) else xy.new_zeros((0, n, 0)))
             targets.append(t)
-            moments.append([moment_stats(r) for r in t])
+            moments.append([moment_stats(r, spec.moments_impl) for r in t])
             cmasks.append([prepare_mask(content_masks[b, r], chw)
                            for r in regs] if masked else [None])
     pyramid = [p.detach().contiguous() for p in pyramid]

@@ -74,7 +74,10 @@ class StepSpec(NamedTuple):
     ``'auto'`` (kernel K5 on a CUDA device), ``'plain'`` or ``'kernel'``.
     ``step_impl`` is the step's route (:func:`step_route`): ``'auto'``
     (a replayed CUDA graph where the call allows one,
-    :mod:`strotss_torch.graphs`) or ``'eager'``.
+    :mod:`strotss_torch.graphs`) or ``'eager'``. ``moments_impl`` is the
+    moment term's route, the style targets' statistics included
+    (:mod:`strotss_torch.ops.kernels.moments`): ``'auto'`` (kernel K6 on
+    a CUDA device), ``'plain'`` or ``'kernel'``.
     """
 
     sample_size: int
@@ -93,6 +96,7 @@ class StepSpec(NamedTuple):
     shard_spatial: bool = False
     sample_impl: str = "plain"
     step_impl: str = "eager"
+    moments_impl: str = "plain"
 
 
 def _block1_route(cfg: StrotssConfig, device) -> str:
@@ -158,6 +162,7 @@ def spec_from_config(cfg: StrotssConfig, device="cpu",
         shard_spatial=cfg.shard_spatial,
         sample_impl=impl,
         step_impl="auto" if graphable else "eager",
+        moments_impl=impl,
     )
 
 
@@ -419,7 +424,8 @@ def step_losses(spec: StepSpec, content_feats, pred, style_targets,
                               sinkhorn_lambda=spec.sinkhorn_lambda,
                               sinkhorn_iters=spec.sinkhorn_iters,
                               remd_impl=spec.remd_impl, target_moments=tmom,
-                              remd=remd, sinkhorn=sinkhorn)
+                              remd=remd, sinkhorn=sinkhorn,
+                              moments_impl=spec.moments_impl)
         if weights is None:
             lc, ls = lc + lc_r / k, ls + ls_r / k
         else:

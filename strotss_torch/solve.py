@@ -420,8 +420,9 @@ def stylize_single(
                                 vgg, coords_source, style_gen, i, scl_s, shw,
                                 n, style_ns, device, style_masks, spatial,
                                 spec.sample_impl)
-                            style_moments = [moment_stats(t)
-                                             for t in style_targets]
+                            style_moments = [
+                                moment_stats(t, spec.moments_impl)
+                                for t in style_targets]
                         cmasks = ([prepare_mask(m, chw)
                                    for m in content_masks]
                                   if masked else [None])

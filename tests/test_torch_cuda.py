@@ -531,7 +531,8 @@ def test_masked_step_on_card(cuda_device):
 
     cfg = StrotssConfig(levels=1, max_iter=1)
     spec = programs.spec_from_config(cfg, cuda_device, masked=True)
-    plain = spec._replace(remd_impl="plain", selfsim_impl="plain")
+    plain = spec._replace(remd_impl="plain", selfsim_impl="plain",
+                          moments_impl="plain")
     programs.set_precision(spec)
     params = {k: {n: t.to(cuda_device) for n, t in p.items()}
               for k, p in random_params("16", 0).items()}
@@ -551,7 +552,9 @@ def test_masked_step_on_card(cuda_device):
         targets = torch.stack([sampling.sample_style(
             sampling.full_grid_coords(gen, (64, 56), 1024, cuda_device,
                                       mask=m), sf) for m in sm])
-        moments = [losses.moment_stats(t) for t in targets]
+        moments = [losses.moment_stats(t, spec.moments_impl)
+                   for t in targets]
+        moments_p = [losses.moment_stats(t, "plain") for t in targets]
     coords = torch.stack([sampling.strided_grid_coords(
         gen, (48, 64), 1024, cuda_device, mask=m) for m in cm])
     leaves = [p.requires_grad_(True)
@@ -565,8 +568,8 @@ def test_masked_step_on_card(cuda_device):
     assert [_count(k) - b for k, b in zip(counted, before)] == [4, 2, 2]
     assert all(bool(torch.isfinite(g).all()) for g in grads)
     with torch.no_grad():
-        want = programs.step_losses(plain, cf, pred, targets, moments, 16.0,
-                                    coords)
+        want = programs.step_losses(plain, cf, pred, targets, moments_p,
+                                    16.0, coords)
     np.testing.assert_allclose([float(v.detach()) for v in got],
                                [float(v) for v in want], rtol=1e-3)
 
